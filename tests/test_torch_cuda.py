@@ -1,0 +1,65 @@
+"""The port's CUDA kernels on the card, each against its plain PyTorch version.
+
+A CUDA kernel has no CPU mode, so these tests carry the `cuda` marker and
+skip where there is no card.  This file imports neither JAX nor the JAX
+package, so it also runs on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from limovelo_tpu_torch.mapping import hashgrid as hg
+from limovelo_tpu_torch.ops.cuda import knn as gk
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, decided when the test runs (never at import or collection)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: a CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _scan_map(rng, params, device, n=20000, center=(150.0, 80.0, 5.0)):
+    """Scan-like world (ground disc + walls) far from the origin."""
+    ang = rng.uniform(0, 2 * np.pi, n)
+    r = rng.uniform(2, 25, n)
+    pts = np.stack([center[0] + r * np.cos(ang), center[1] + r * np.sin(ang),
+                    center[2] + np.where(rng.random(n) < 0.3, rng.uniform(0, 3, n),
+                                         rng.normal(0, 0.05, n))], -1).astype(np.float32)
+    m = hg.insert(hg.make_map(params, device=device), torch.as_tensor(pts, device=device),
+                  torch.ones(n, dtype=torch.bool, device=device), params)
+    return m, pts
+
+
+@pytest.mark.cuda
+def test_knn_grouped_kernel_matches_plain(cuda_device):
+    """Equal valid masks, d² within 1e-5 on valid entries and equal
+    neighbour coordinates, at rings=1 and tiered (rings=3, 32 buckets), with
+    and without group overflow, and on an empty map.  Both sides compute
+    the same recentred (q − p)² rounded after every operation, so they
+    normally agree exactly; 1e-5 is the stated bound."""
+    rng = np.random.default_rng(0)
+    params = hg.GridParams(table_size=1 << 14)
+    m, world = _scan_map(rng, params, cuda_device)
+    q = torch.as_tensor((world[rng.choice(len(world), 4096, replace=False)]
+                         + rng.normal(0, 0.05, (4096, 3))).astype(np.float32), device=cuda_device)
+    empty = hg.make_map(params, device=cuda_device)
+    for mm, g_max, rings, mb in ((m, 1024, 1, None), (m, 1024, 3, 32), (m, 16, 1, None),
+                                 (empty, 1024, 1, None)):
+        before = gk.knn_grouped.launches
+        got = gk.knn_grouped(mm, q, params, k=5, g_max=g_max, rings=rings, max_buckets=mb)
+        torch.cuda.synchronize()
+        assert gk.knn_grouped.launches == before + 1
+        want = gk.knn_grouped_plain(mm, q, params, k=5, g_max=g_max, rings=rings, max_buckets=mb)
+        assert torch.equal(got[2], want[2])
+        v = want[2]
+        assert torch.allclose(got[1][v], want[1][v], rtol=0, atol=1e-5)
+        assert torch.equal(got[0][v], want[0][v])
+        assert bool(torch.isinf(got[1][~v]).all())
+        assert bool(v.any()) == (mm is m)

@@ -1,0 +1,71 @@
+"""The port stands alone: no module of `limovelo_tpu_torch`, and not
+chip_smoke.py, imports JAX or the JAX package, and its entry points run on
+the card unless the caller asks for the CPU."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import limovelo_tpu_torch
+from limovelo_tpu_torch import DEFAULT
+from limovelo_tpu_torch.runtime.pipeline import LioPipeline
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "limovelo_tpu_torch"
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages([str(PKG)], "limovelo_tpu_torch."))
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "limovelo_tpu") or top.startswith("jax")
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _modules()
+    assert "limovelo_tpu_torch.ops.cuda.knn" in mods and len(mods) > 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'limovelo_tpu')\n"
+        "             or k.startswith('jax'))\n"
+        "print(len(bad), bad[:5])\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_jax_import_in_sources():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    found = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [(f.name, n) for n in names if _forbidden(n)]
+    assert not found
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LioPipeline(DEFAULT)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        limovelo_tpu_torch.resolve_device()
+    # the CPU only when asked for
+    assert LioPipeline(DEFAULT, device="cpu").device.type == "cpu"
