@@ -13,7 +13,10 @@ Phases, each printing one JSON line with its elapsed seconds:
            400 Hz, 3 s of a 24 m room with ten boxes, 4 m circle)
   kernel   each kernel against its plain PyTorch version on the card, at the
            main path's shapes (queries from a scan, map at the default table
-           size), with the kernel's time, the plain version's and the bound
+           size): the function's outputs, and the kernel's raw outputs held
+           to its output contract (ops/cuda/knn.py); the kernel's time, the
+           plain version's, the bound, the work the data needs, and the
+           times of other launch shapes of the same kernel
   main     LioPipeline(DEFAULT with the 1-ring grouped KNN, device="cuda")
            replays the stream; every launch count is set to 0 just before
            and read just after, and each window must have launched the kernel
@@ -56,6 +59,7 @@ POS_TOL_M = 0.005
 MIN_MATCH_FRAC = 0.15
 D2_ATOL = 1e-5
 K = 5
+SPIN_CYCLES = 10_000_000     # ~5 ms at the H100's 1.98 GHz boost clock
 
 _T0 = time.perf_counter()
 
@@ -76,16 +80,19 @@ def nvidia_smi_line() -> str:
 
 def time_ms(fn, reps: int = 25, batch: int = 10, warmup: int = 3) -> float:
     """Device time of one fn() call: the median over `reps` of CUDA-event
-    timings of `batch` back-to-back calls, divided by `batch` (so the host's
-    own time between calls hides behind the device's).  Before each rep a
-    64 MB buffer is rewritten, outside the timed span, so each batch starts
-    with a cold L2."""
+    timings of `batch` back-to-back calls, divided by `batch`.  Before each
+    rep, outside the timed span, a 64 MB buffer is rewritten (each batch
+    starts with a cold L2) and a spin kernel holds the stream for about
+    5 ms (`torch.cuda._sleep`), so the host has issued the whole batch
+    before the device reaches it: the span is the device's time for the
+    calls back to back, not the host's time to issue them."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
         for _ in range(batch):
@@ -147,6 +154,28 @@ def main_path_queries(scan_w: np.ndarray, sensor: np.ndarray, n: int, leaf: floa
     return q, c
 
 
+def raw_contract(grp, map_pts, what: str, **launch) -> tuple:
+    """The kernel's raw per-group outputs (`launch`: the launch shape, the
+    main path's by default) held to its output contract against the plain
+    version; returns the raw arguments and the entries held bit for bit."""
+    from limovelo_tpu_torch.ops.cuda import knn
+
+    args = (grp.bucket_ids, grp.order_q, grp.centers, map_pts, K)
+    got = knn._launch(*args, **launch) if launch else knn.group_topk(*args)
+    try:
+        n_exact = knn.check_topk_contract(grp.order_q, grp.bucket_ids, map_pts.shape[1],
+                                          got, knn.group_topk_plain(*args))
+    except AssertionError as e:
+        raise AssertionError(f"{what} {launch}: {e}") from None
+    return args, n_exact
+
+
+#: launch shapes timed beside the main path's (one CTA per group, the lanes
+#: rule): persistent CTAs, a warp per query, a thread per query
+VARIANTS = {"persistent": dict(grid=-1), "warp_per_query": dict(lanes=32),
+            "thread_per_query": dict(lanes=1)}
+
+
 def kernel_phase(world_pts: np.ndarray, scan_w: np.ndarray, sensor: np.ndarray, device="cuda"):
     from limovelo_tpu_torch.mapping import hashgrid as hg
     from limovelo_tpu_torch.ops.cuda import knn
@@ -162,26 +191,44 @@ def kernel_phase(world_pts: np.ndarray, scan_w: np.ndarray, sensor: np.ndarray, 
         q = torch.as_tensor(q_np, device=dev)
         for rings, mb in ((1, None), (3, 32)):
             g_max = max(n // 4, 64)
+            what = f"N={n} rings={rings}"
             got = knn.knn_grouped(m, q, params, k=K, rings=rings, max_buckets=mb)
             want = knn.knn_grouped_plain(m, q, params, k=K, rings=rings, max_buckets=mb)
-            max_err = max(max_err, compare_knn(got, want, f"N={n} rings={rings}"))
+            max_err = max(max_err, compare_knn(got, want, what))
             grp = knn.group_queries(m, q, params, g_max, rings=rings, max_buckets=mb)
-            bids = grp.bucket_ids.to(torch.int32).contiguous()
-            args = (bids, grp.order_q, grp.centers, m.pts, K)
+            args, n_exact = raw_contract(grp, m.pts, what)
             ms = time_ms(lambda: knn.group_topk(*args))
+            variant_ms = {}
+            for name, launch in VARIANTS.items():
+                raw_contract(grp, m.pts, what, **launch)
+                variant_ms[name] = time_ms(lambda: knn._launch(*args, **launch))
+            # the floor that g_max sets: the same groups with every bucket
+            # absent, so every CTA takes the early exit
+            no_work = (torch.full_like(grp.bucket_ids, -1),) + args[1:]
+            early_exit_ms = time_ms(lambda: knn.group_topk(*no_work))
             plain_ms = time_ms(lambda: knn.group_topk_plain(*args), reps=5, batch=1, warmup=1)
             bound_ms, bound_by, flops, nbytes = topk_bound(grp, m.pts, K, knn.FAR)
+            present = (grp.bucket_ids >= 0).sum(-1)
+            real = (grp.order_q[..., 0] != knn.FAR).sum(-1)
+            work = (present > 0) & (real > 0)
             cases.append(dict(
-                n=n, ds_queries=n_ds, g_max=g_max, nb=int(bids.shape[1]), rings=rings,
-                groups_used=int((grp.bucket_ids >= 0).any(-1).sum()),
+                n=n, ds_queries=n_ds, g_max=g_max, nb=int(grp.bucket_ids.shape[1]), rings=rings,
+                groups_used=int((present > 0).sum()), groups_with_work=int(work.sum()),
+                full_groups_with_work=int((work & (real == knn.GROUP_CAP)).sum()),
+                real_slots=int(real.sum()), real_slots_with_work=int(real[work].sum()),
+                present_buckets=int(present.sum()),
+                present_buckets_with_work=int(present[work].sum()),
+                pairs=flops / 8, exact_entries=n_exact,
                 valid_frac_ds=float(want[2][:n_ds].float().mean()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, flop=flops, bytes=nbytes))
+                bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+                early_exit_ms=early_exit_ms, variant_ms=variant_ms, flop=flops, bytes=nbytes))
     # overflow (far fewer groups than voxels) and an empty map
     q = torch.as_tensor(main_path_queries(scan_w, sensor, 8192, leaf)[0], device=dev)
     for mm, g_max, what in ((m, 64, "overflow"), (hg.make_map(params, device=dev), 2048, "empty")):
         got = knn.knn_grouped(mm, q, params, k=K, g_max=g_max)
         want = knn.knn_grouped_plain(mm, q, params, k=K, g_max=g_max)
         max_err = max(max_err, compare_knn(got, want, what))
+        raw_contract(knn.group_queries(mm, q, params, g_max), mm.pts, what)
         frac = float(want[2].float().mean())
         if (what == "empty" and frac != 0.0) or (what == "overflow" and not 0.0 < frac < 0.5):
             raise AssertionError(f"{what}: valid fraction {frac}")
@@ -422,8 +469,6 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": None,
-        "max_abs_d2_err": max_err,
-        "kernel_ms": main_case["ms"],
     }]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -189,12 +189,13 @@ def _find_or_claim_buckets(m: HashGridMap, coarse, active, params: GridParams):
     return keys[:T], bucket, active & ~pending
 
 
-def _lookup_buckets(keys, coarse, params: GridParams):
-    """Read-only probe: coarse coords (..., 3) → bucket index or -1 (int64).
-    Stops once every chain has resolved."""
+def _lookup_buckets(keys, coarse, params: GridParams, dtype=torch.int64):
+    """Read-only probe: coarse coords (..., 3) → bucket index or -1, as
+    `dtype` (int32 for the grouped kernel).  Stops once every chain has
+    resolved."""
     T = params.table_size
-    h0 = _hash_coords(coarse, T).to(torch.int64)
-    bucket = torch.full(coarse.shape[:-1], -1, dtype=torch.int64, device=coarse.device)
+    h0 = _hash_coords(coarse, T).to(dtype)
+    bucket = torch.full(coarse.shape[:-1], -1, dtype=dtype, device=coarse.device)
     done = torch.zeros(coarse.shape[:-1], dtype=torch.bool, device=coarse.device)
     for i in range(params.probe_length):
         if bool(done.all()):

@@ -15,6 +15,22 @@ query (port of `limovelo_tpu/ops/pallas/knn.py`).
 Returns `mapping.hashgrid.knn` shapes and semantics: (neighbors (N,k,3),
 sq_dists (N,k) ascending, valid (N,k)).  Queries whose group falls beyond
 `g_max` come back valid=False.
+
+The kernel's output contract against `group_topk_plain` (checked by
+`check_topk_contract`).  A *real* slot is one whose `order_q` x is not FAR
+(a group's real slots are a prefix); a bucket is *present* when its id is
+>= 0.
+- On every real slot, each entry that the plain version gives with
+  d < `_VALID_D2_MAX` (1e16) is bit-identical in d and in idx, the flat
+  index b·64 + slot over the group's original NB buckets; ties go to the
+  lowest index.
+- Where the plain version gives d >= 1e16, the kernel gives d >= 1e16
+  (+inf allowed) and some idx in [0, NB·64).
+- Every output entry is written, vacant slots and groups without work
+  included, with an idx in [0, NB·64): `_gather` reads `idx_g[0, rank]` for
+  overflowed queries.
+The kernel computes only (real slots) × (present buckets) × 64 distances;
+everything past that is ≥ 1e16 in the plain version and never valid.
 """
 
 from __future__ import annotations
@@ -38,10 +54,11 @@ from ..voxel import lexsort
 
 GROUP_CAP = 64          # queries per group (larger voxel groups split)
 MAX_K = 8               # the kernel is instantiated for k = 1..8
+MAX_NB = 32             # neighbour buckets per group the kernel takes (one warp ballot)
 
 
 class Groups(NamedTuple):
-    bucket_ids: torch.Tensor   # (g_max, NB) int64 — neighbour buckets (-1 absent)
+    bucket_ids: torch.Tensor   # (g_max, NB) int32 — neighbour buckets (-1 absent)
     group_of: torch.Tensor     # (N,) int64 — group of each query (-1: overflowed)
     rank_of: torch.Tensor      # (N,) int64 — slot within its group
     order_q: torch.Tensor      # (g_max, GROUP_CAP, 3) — queries per slot (FAR vacant)
@@ -86,7 +103,7 @@ def group_queries(m: HashGridMap, queries: torch.Tensor, params: GridParams,
 
     offs = torch.as_tensor(_neighbor_offsets(rings), device=dev)
     nb_coords = leader_coarse[:, None, :] + offs[None, :, :]
-    bucket_ids = _lookup_buckets(m.keys, nb_coords, params)
+    bucket_ids = _lookup_buckets(m.keys, nb_coords, params, dtype=torch.int32)
     bucket_ids = torch.where(group_active[:, None], bucket_ids, -1)
 
     cs_size = params.coarse_size
@@ -149,8 +166,12 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(bucket_ids, order_q, centers, map_pts, k: int):
-    """Launch `csrc/knn_grouped.cu` on PyTorch's current stream."""
+def _launch(bucket_ids, order_q, centers, map_pts, k: int, grid: int = 0, lanes: int = 0,
+            out=None):
+    """Launch `csrc/knn_grouped.cu` on PyTorch's current stream.  `grid` and
+    `lanes` open the launch shape for measurement (0 and 0: the main path's,
+    see `knn_grouped_launch_config` in the source); `out` = (sq, idx) are
+    written in place of fresh outputs."""
     from .build import load
 
     dev = order_q.device
@@ -158,20 +179,32 @@ def _launch(bucket_ids, order_q, centers, map_pts, k: int):
     S = map_pts.shape[1]
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k}: the grouped kernel supports 1..{MAX_K}")
+    if not 1 <= NB <= MAX_NB:
+        raise ValueError(f"{NB} buckets per group: the grouped kernel takes 1..{MAX_NB} "
+                         "(rings > 1 needs max_buckets)")
     _check(bucket_ids, "bucket_ids", torch.int32, (G, NB), dev)
     _check(order_q, "order_q", torch.float32, (G, GROUP_CAP, 3), dev)
     _check(centers, "centers", torch.float32, (G, 1, 3), dev)
     _check(map_pts, "map_pts", torch.float32, (map_pts.shape[0], S, 3), dev)
-    sq = torch.empty((G, GROUP_CAP, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((G, GROUP_CAP, k), dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.empty((G, GROUP_CAP, k), dtype=torch.float32, device=dev),
+               torch.empty((G, GROUP_CAP, k), dtype=torch.int32, device=dev))
+    sq, idx = out
+    _check(sq, "sq", torch.float32, (G, GROUP_CAP, k), dev)
+    _check(idx, "idx", torch.int32, (G, GROUP_CAP, k), dev)
     lib = load("knn_grouped")
-    fn = lib.knn_grouped_launch
+    args = [bucket_ids.data_ptr(), order_q.data_ptr(), centers.data_ptr(), map_pts.data_ptr(),
+            sq.data_ptr(), idx.data_ptr(), G, NB, k, S]
+    if grid == 0 and lanes == 0:
+        fn = lib.knn_grouped_launch
+        n_int = 4
+    else:
+        fn = lib.knn_grouped_launch_config
+        args += [grid, lanes]
+        n_int = 6
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(bucket_ids.data_ptr(), order_q.data_ptr(), centers.data_ptr(),
-             map_pts.data_ptr(), sq.data_ptr(), idx.data_ptr(),
-             G, NB, k, S, stream)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_grouped kernel launch failed: cudaError {err}")
     knn_grouped.launches += 1
@@ -182,11 +215,48 @@ def group_topk(bucket_ids, order_q, centers, map_pts, k: int):
     """Per-group top-k: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if order_q.device.type == "cuda":
-        return _launch(bucket_ids.to(torch.int32).contiguous(), order_q, centers,
-                       map_pts, k)
+        return _launch(bucket_ids, order_q, centers, map_pts, k)
     if order_q.device.type != "cpu":
         raise ValueError(f"group_topk: unsupported device {order_q.device}")
     return group_topk_plain(bucket_ids, order_q, centers, map_pts, k)
+
+
+def _first(mask: torch.Tensor) -> list:
+    return torch.nonzero(mask)[0].tolist()
+
+
+def check_topk_contract(order_q, bucket_ids, slots: int, got, want) -> int:
+    """Hold `got` = (sq, idx) of `group_topk` to the kernel's output contract
+    (module docstring) against `want`, the plain version's on the same
+    inputs.  Raises AssertionError at a breach, naming its (group, slot,
+    rank); returns the number of entries that had to agree bit for bit."""
+    sq, idx = got
+    sq_w, idx_w = want
+    if (sq.shape != sq_w.shape or idx.shape != idx_w.shape or sq.dtype != torch.float32
+            or idx.dtype != torch.int32):
+        raise AssertionError(f"outputs {sq.dtype} {tuple(sq.shape)}, {idx.dtype} "
+                             f"{tuple(idx.shape)}; want f32/int32 {tuple(sq_w.shape)}")
+    n_cand = bucket_ids.shape[1] * slots
+    out_of_range = (idx < 0) | (idx >= n_cand)
+    if bool(out_of_range.any()):
+        raise AssertionError(f"idx outside [0, {n_cand}) at {_first(out_of_range)}")
+    if bool(torch.isnan(sq).any()):
+        raise AssertionError(f"NaN distance at {_first(torch.isnan(sq))}")
+    real = (order_q[..., 0] != FAR)[..., None].expand_as(sq_w)
+    exact = real & (sq_w < _VALID_D2_MAX)
+    d_diff = exact & (sq.view(torch.int32) != sq_w.view(torch.int32))
+    if bool(d_diff.any()):
+        at = tuple(_first(d_diff))
+        raise AssertionError(f"d differs at {at}: {float(sq[at])!r} vs {float(sq_w[at])!r}")
+    i_diff = exact & (idx != idx_w)
+    if bool(i_diff.any()):
+        at = tuple(_first(i_diff))
+        raise AssertionError(f"idx differs at {at}: {int(idx[at])} vs {int(idx_w[at])}")
+    far_low = real & ~(sq_w < _VALID_D2_MAX) & ~(sq >= _VALID_D2_MAX)
+    if bool(far_low.any()):
+        raise AssertionError(f"d below {_VALID_D2_MAX} where the plain version has none, "
+                             f"at {_first(far_low)}")
+    return int(exact.sum())
 
 
 def _gather(m: HashGridMap, grp: Groups, sq_g, idx_g, S: int):

@@ -14,6 +14,8 @@ import torch
 from limovelo_tpu_torch.mapping import hashgrid as hg
 from limovelo_tpu_torch.ops.cuda import knn as gk
 
+from knn_cases import adversarial_groups
+
 torch.set_num_threads(1)
 
 
@@ -43,7 +45,8 @@ def test_knn_grouped_kernel_matches_plain(cuda_device):
     neighbour coordinates, at rings=1 and tiered (rings=3, 32 buckets), with
     and without group overflow, and on an empty map.  Both sides compute
     the same recentred (q − p)² rounded after every operation, so they
-    normally agree exactly; 1e-5 is the stated bound."""
+    normally agree exactly; 1e-5 is the stated bound.  The raw per-group
+    outputs also meet the output contract (`gk.check_topk_contract`)."""
     rng = np.random.default_rng(0)
     params = hg.GridParams(table_size=1 << 14)
     m, world = _scan_map(rng, params, cuda_device)
@@ -63,3 +66,39 @@ def test_knn_grouped_kernel_matches_plain(cuda_device):
         assert torch.equal(got[0][v], want[0][v])
         assert bool(torch.isinf(got[1][~v]).all())
         assert bool(v.any()) == (mm is m)
+        grp = gk.group_queries(mm, q, params, g_max, rings=rings, max_buckets=mb)
+        raw = (grp.bucket_ids, grp.order_q, grp.centers, mm.pts, 5)
+        gk.check_topk_contract(grp.order_q, grp.bucket_ids, params.slots,
+                               gk.group_topk(*raw), gk.group_topk_plain(*raw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,nb,grid,lanes,unaligned", [
+    (1, 27, 0, 0, False), (5, 27, 0, 0, False), (8, 32, 0, 0, False), (5, 27, -1, 0, False),
+    (5, 32, 0, 1, False), (8, 27, 0, 32, False), (5, 27, 0, 0, True)])
+def test_knn_grouped_kernel_contract_adversarial(cuda_device, k, nb, grid, lanes, unaligned):
+    """The raw outputs on groups built to break a kernel (tests/knn_cases.py:
+    a full group and a one-query group, an all-absent group and one past the
+    last, mirrored and duplicated map points that tie exactly, 5-33 real
+    queries, non-prefix slots, a bucket with two points, 64 padding rows)
+    meet the output contract against the plain version: bit-identical d and
+    idx below 1e16, and every entry written (outputs start as NaN and -7).
+    At k = 1, 5 and 8, NB = 27 and 32, the main path's launch and the
+    persistent grid, the lanes rule and fixed 1 and 32 lanes per query, and
+    a map table 4 bytes off 16-byte alignment (the 4-byte copy path)."""
+    bids, oq, ctr, pts = (torch.as_tensor(a, device=cuda_device)
+                          for a in adversarial_groups(11, nb))
+    if unaligned:
+        flat = torch.empty(pts.numel() + 1, device=cuda_device)
+        flat[1:] = pts.reshape(-1)
+        pts = flat[1:].view(pts.shape)
+        assert pts.data_ptr() % 16 != 0 and pts.is_contiguous()
+    G = bids.shape[0]
+    out = (torch.full((G, gk.GROUP_CAP, k), float("nan"), device=cuda_device),
+           torch.full((G, gk.GROUP_CAP, k), -7, dtype=torch.int32, device=cuda_device))
+    before = gk.knn_grouped.launches
+    got = gk._launch(bids, oq, ctr, pts, k, grid=grid, lanes=lanes, out=out)
+    torch.cuda.synchronize()
+    assert gk.knn_grouped.launches == before + 1
+    want = gk.group_topk_plain(bids, oq, ctr, pts, k)
+    assert gk.check_topk_contract(oq, bids, pts.shape[1], got, want) > 0
