@@ -16,7 +16,7 @@ Phases, each printing one JSON line with its elapsed seconds:
            size): the function's outputs, and the kernel's raw outputs held
            to its output contract (ops/cuda/knn.py); the kernel's time, the
            plain version's, the bound, the work the data needs, and the
-           times of other launch shapes of the same kernel
+           early-exit floor (the same groups with every bucket absent)
   main     LioPipeline(DEFAULT with the 1-ring grouped KNN, device="cuda")
            replays the stream; every launch count is set to 0 just before
            and read just after, and each window must have launched the kernel
@@ -154,26 +154,47 @@ def main_path_queries(scan_w: np.ndarray, sensor: np.ndarray, n: int, leaf: floa
     return q, c
 
 
-def raw_contract(grp, map_pts, what: str, **launch) -> tuple:
-    """The kernel's raw per-group outputs (`launch`: the launch shape, the
-    main path's by default) held to its output contract against the plain
-    version; returns the raw arguments and the entries held bit for bit."""
+def raw_contract(grp, map_pts, what: str) -> tuple:
+    """The kernel's raw per-group outputs held to its output contract
+    against the plain version; returns the raw arguments and the entries
+    held bit for bit."""
     from limovelo_tpu_torch.ops.cuda import knn
 
     args = (grp.bucket_ids, grp.order_q, grp.centers, map_pts, K)
-    got = knn._launch(*args, **launch) if launch else knn.group_topk(*args)
     try:
         n_exact = knn.check_topk_contract(grp.order_q, grp.bucket_ids, map_pts.shape[1],
-                                          got, knn.group_topk_plain(*args))
+                                          knn.group_topk(*args), knn.group_topk_plain(*args))
     except AssertionError as e:
-        raise AssertionError(f"{what} {launch}: {e}") from None
+        raise AssertionError(f"{what}: {e}") from None
     return args, n_exact
 
 
-#: launch shapes timed beside the main path's (one CTA per group, the lanes
-#: rule): persistent CTAs, a warp per query, a thread per query
-VARIANTS = {"persistent": dict(grid=-1), "warp_per_query": dict(lanes=32),
-            "thread_per_query": dict(lanes=1)}
+def kernel_views(world, sim):
+    """The kernel phase's world: the map cloud (the sensor's views at 12
+    poses over the run), and one scan with its sensor position."""
+    return (cast_views(world, sim, np.linspace(0, 1, 12))[0],) + cast_views(world, sim, [0.52])
+
+
+def kernel_map(world_pts: np.ndarray, dev):
+    """The default 131072-bucket table holding `world_pts`."""
+    from limovelo_tpu_torch.mapping import hashgrid as hg
+
+    params = hg.GridParams()
+    m = hg.insert(hg.make_map(params, device=dev), torch.as_tensor(world_pts, device=dev),
+                  torch.ones(len(world_pts), dtype=torch.bool, device=dev), params)
+    return params, m
+
+
+def kernel_shapes(scan_w: np.ndarray, sensor: np.ndarray, dev):
+    """The kernel phase's shapes: (N rows, downsampled count, queries,
+    rings, max_buckets) for the main path's three point buckets, with the
+    1-ring envelope and the tiered rings=3 NB=32 one."""
+    leaf = main_config().downsample_prec
+    for n in (8192, 16384, 32768):
+        q_np, n_ds = main_path_queries(scan_w, sensor, n, leaf)
+        q = torch.as_tensor(q_np, device=dev)
+        for rings, mb in ((1, None), (3, 32)):
+            yield n, n_ds, q, rings, mb
 
 
 def kernel_phase(world_pts: np.ndarray, scan_w: np.ndarray, sensor: np.ndarray, device="cuda"):
@@ -181,49 +202,39 @@ def kernel_phase(world_pts: np.ndarray, scan_w: np.ndarray, sensor: np.ndarray, 
     from limovelo_tpu_torch.ops.cuda import knn
 
     dev = torch.device(device)
-    leaf = main_config().downsample_prec
-    params = hg.GridParams()                       # the default 131072-bucket table
-    m = hg.insert(hg.make_map(params, device=dev), torch.as_tensor(world_pts, device=dev),
-                  torch.ones(len(world_pts), dtype=torch.bool, device=dev), params)
+    params, m = kernel_map(world_pts, dev)
     cases, max_err = [], 0.0
-    for n in (8192, 16384, 32768):
-        q_np, n_ds = main_path_queries(scan_w, sensor, n, leaf)
-        q = torch.as_tensor(q_np, device=dev)
-        for rings, mb in ((1, None), (3, 32)):
-            g_max = max(n // 4, 64)
-            what = f"N={n} rings={rings}"
-            got = knn.knn_grouped(m, q, params, k=K, rings=rings, max_buckets=mb)
-            want = knn.knn_grouped_plain(m, q, params, k=K, rings=rings, max_buckets=mb)
-            max_err = max(max_err, compare_knn(got, want, what))
-            grp = knn.group_queries(m, q, params, g_max, rings=rings, max_buckets=mb)
-            args, n_exact = raw_contract(grp, m.pts, what)
-            ms = time_ms(lambda: knn.group_topk(*args))
-            variant_ms = {}
-            for name, launch in VARIANTS.items():
-                raw_contract(grp, m.pts, what, **launch)
-                variant_ms[name] = time_ms(lambda: knn._launch(*args, **launch))
-            # the floor that g_max sets: the same groups with every bucket
-            # absent, so every CTA takes the early exit
-            no_work = (torch.full_like(grp.bucket_ids, -1),) + args[1:]
-            early_exit_ms = time_ms(lambda: knn.group_topk(*no_work))
-            plain_ms = time_ms(lambda: knn.group_topk_plain(*args), reps=5, batch=1, warmup=1)
-            bound_ms, bound_by, flops, nbytes = topk_bound(grp, m.pts, K, knn.FAR)
-            present = (grp.bucket_ids >= 0).sum(-1)
-            real = (grp.order_q[..., 0] != knn.FAR).sum(-1)
-            work = (present > 0) & (real > 0)
-            cases.append(dict(
-                n=n, ds_queries=n_ds, g_max=g_max, nb=int(grp.bucket_ids.shape[1]), rings=rings,
-                groups_used=int((present > 0).sum()), groups_with_work=int(work.sum()),
-                full_groups_with_work=int((work & (real == knn.GROUP_CAP)).sum()),
-                real_slots=int(real.sum()), real_slots_with_work=int(real[work].sum()),
-                present_buckets=int(present.sum()),
-                present_buckets_with_work=int(present[work].sum()),
-                pairs=flops / 8, exact_entries=n_exact,
-                valid_frac_ds=float(want[2][:n_ds].float().mean()), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
-                early_exit_ms=early_exit_ms, variant_ms=variant_ms, flop=flops, bytes=nbytes))
+    for n, n_ds, q, rings, mb in kernel_shapes(scan_w, sensor, dev):
+        g_max = max(n // 4, 64)
+        what = f"N={n} rings={rings}"
+        got = knn.knn_grouped(m, q, params, k=K, rings=rings, max_buckets=mb)
+        want = knn.knn_grouped_plain(m, q, params, k=K, rings=rings, max_buckets=mb)
+        max_err = max(max_err, compare_knn(got, want, what))
+        grp = knn.group_queries(m, q, params, g_max, rings=rings, max_buckets=mb)
+        args, n_exact = raw_contract(grp, m.pts, what)
+        ms = time_ms(lambda: knn.group_topk(*args))
+        # the floor that g_max sets: the same groups with every bucket
+        # absent, so every CTA takes the early exit
+        no_work = (torch.full_like(grp.bucket_ids, -1),) + args[1:]
+        early_exit_ms = time_ms(lambda: knn.group_topk(*no_work))
+        plain_ms = time_ms(lambda: knn.group_topk_plain(*args), reps=5, batch=1, warmup=1)
+        bound_ms, bound_by, flops, nbytes = topk_bound(grp, m.pts, K, knn.FAR)
+        present = (grp.bucket_ids >= 0).sum(-1)
+        real = (grp.order_q[..., 0] != knn.FAR).sum(-1)
+        work = (present > 0) & (real > 0)
+        cases.append(dict(
+            n=n, ds_queries=n_ds, g_max=g_max, nb=int(grp.bucket_ids.shape[1]), rings=rings,
+            groups_used=int((present > 0).sum()), groups_with_work=int(work.sum()),
+            full_groups_with_work=int((work & (real == knn.GROUP_CAP)).sum()),
+            real_slots=int(real.sum()), real_slots_with_work=int(real[work].sum()),
+            present_buckets=int(present.sum()),
+            present_buckets_with_work=int(present[work].sum()),
+            pairs=flops / 8, exact_entries=n_exact,
+            valid_frac_ds=float(want[2][:n_ds].float().mean()), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+            early_exit_ms=early_exit_ms, flop=flops, bytes=nbytes))
     # overflow (far fewer groups than voxels) and an empty map
-    q = torch.as_tensor(main_path_queries(scan_w, sensor, 8192, leaf)[0], device=dev)
+    q = next(kernel_shapes(scan_w, sensor, dev))[2]
     for mm, g_max, what in ((m, 64, "overflow"), (hg.make_map(params, device=dev), 2048, "empty")):
         got = knn.knn_grouped(mm, q, params, k=K, g_max=g_max)
         want = knn.knn_grouped_plain(mm, q, params, k=K, g_max=g_max)
@@ -449,8 +460,7 @@ def main() -> int:
     phase("sim", scans=len(sim.scans), returns_per_scan=float(np.mean([len(s.pts) for s in sim.scans])),
           imu_samples=len(sim.imu_t))
 
-    cases, max_err = kernel_phase(cast_views(world, sim, np.linspace(0, 1, 12))[0],
-                                  *cast_views(world, sim, [0.52]))
+    cases, max_err = kernel_phase(*kernel_views(world, sim))
     phase("kernel", kernel="knn_grouped", max_abs_d2_err=max_err, cases=cases)
 
     res, stats = main_phase(sim)

@@ -51,7 +51,7 @@
 //     slots' sentinels are stored while the copies are in flight.  The
 //     coordinates are recentred in registers at use, with the same rounded
 //     subtractions as before, so the bits do not change.
-//  3. L lanes per real query, L = 32 (a warp per query) down to 1, the
+//  3. L lanes per real query, L = 32 (a warp per query) down to 4, the
 //     largest power of two with L * (real queries) <= 256 threads: a group
 //     with 1-8 real queries gets a warp per query, the 64-query padding
 //     groups get 4 lanes per query, and every lane of the CTA has work
@@ -63,31 +63,30 @@
 //     the k lexicographically smallest pairs, in order, which is exactly what
 //     the plain version's k passes of first-minimum give.  Compacted indices
 //     keep the original order, so ties resolve as before; the winner is
-//     mapped back to b*64 + slot when it is stored.  `chip_smoke.py` times
-//     this rule against a fixed warp per query and a fixed thread per query
-//     (knn_grouped_launch_config's `lanes`) on the main path's data.  On an
-//     H100 80GB HBM3 at 700 W, N = 8192: rings=1 (2.3 real queries per
-//     group with work) 0.0093 ms for the rule and for a warp per query, 0.089 ms for
-//     a thread per query; tiered (118 groups of 64 padding rows with work)
-//     0.033 ms for the rule, 0.055 ms for a warp per query, 0.163 ms for a
-//     thread per query.  So the crossover sits where the lanes run out: a
-//     warp per query up to 8 real queries, fewer lanes beyond.
+//     mapped back to b*64 + slot when it is stored.  The rule was chosen by
+//     timing it against a fixed warp per query and a fixed thread per query
+//     on the main path's data (PERF.md, Findings).  On an H100 80GB HBM3 at
+//     700 W, N = 8192: rings=1 (2.3 real queries per group with work)
+//     0.0093 ms for the rule and for a warp per query, 0.089 ms for a thread
+//     per query; tiered (118 groups of 64 padding rows with work) 0.033 ms
+//     for the rule, 0.055 ms for a warp per query, 0.163 ms for a thread per
+//     query.  So the crossover sits where the lanes run out: a warp per query
+//     up to 8 real queries, fewer lanes beyond (4 for a full group).
 //  4. Tensor cores are not used.  The work the data needs is ~0.5 M pair
 //     evaluations per window, microseconds on the CUDA cores.  The only f32
 //     tensor-core path is TF32 (10 mantissa bits): it would break the bit
 //     identity with the plain version and can reorder near-tie neighbours,
 //     which changes the plane fits downstream.
-//  5. Grid: one CTA of 256 threads per group, with the early exit; the CTA
-//     loops over groups with a grid stride, so `grid` < g_max gives
-//     persistent CTAs.  `chip_smoke.py` times both launch shapes on the main
-//     path's data: persistent CTAs (as many as are resident, a static
-//     stride over the groups) took 0.0099 / 0.0151 / 0.0218 ms against
-//     0.0093 / 0.0117 / 0.0186 ms for one CTA per group at N = 8192 / 16384
-//     / 32768, rings=1 (same card).  One CTA per group is the launch: it
-//     measured faster, the block scheduler already hands a free SM the next
-//     group, and a dynamic work counter would need a zeroed word per launch
-//     (one more launch on the main path).  Shared memory: NB*768 bytes of candidates + 512
-//     bytes of tables; 32-45 registers, no spills (ptxas, k = 1..8).
+//  5. Grid: one CTA of 256 threads per group, with the early exit.
+//     Persistent CTAs (as many as are resident, a static stride over the
+//     groups) were timed against it on the main path's data (PERF.md,
+//     Findings): 0.0099 / 0.0151 / 0.0218 ms against 0.0093 / 0.0117 /
+//     0.0186 ms for one CTA per group at N = 8192 / 16384 / 32768, rings=1
+//     (same card).  One CTA per group is the launch: it measured faster, the
+//     block scheduler already hands a free SM the next group, and a dynamic
+//     work counter would need a zeroed word per launch (one more launch on
+//     the main path).  Shared memory: NB*768 bytes of candidates + 512 bytes
+//     of tables; 32-40 registers, no spills (ptxas, k = 1..8).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -108,7 +107,7 @@ struct Args {
   const float* map_pts;       // (T, slots, 3) the map's points, FAR in empty slots
   float* sq_out;              // (G, 64, K)
   int32_t* idx_out;           // (G, 64, K)
-  int g_max, nb, slots, lanes;
+  int nb, slots;
   bool vec16;                 // bucket rows may be copied 16 bytes at a time
 };
 
@@ -138,186 +137,164 @@ knn_grouped_kernel(const Args a) {
   __shared__ int s_bid[kMaxNb];      // its table bucket
   __shared__ int s_slot[kGroupCap];  // slot of the j-th real query
 
+  const int g = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row = a.slots * 3;       // floats per bucket row
 
-  for (int g = blockIdx.x; g < a.g_max; g += gridDim.x) {
-    // 1. prologue: every warp takes the same ballots, so the masks are
-    //    uniform over the CTA
-    const int bid = lane < a.nb ? a.bucket_ids[(size_t)g * a.nb + lane] : -1;
-    const unsigned present = __ballot_sync(0xffffffffu, bid >= 0);
-    const float* qg = a.order_q + (size_t)g * kGroupCap * 3;
-    const unsigned real_lo = __ballot_sync(0xffffffffu, qg[lane * 3] != kFar);
-    const unsigned real_hi = __ballot_sync(0xffffffffu, qg[(lane + 32) * 3] != kFar);
-    const unsigned long long real = ((unsigned long long)real_hi << 32) | real_lo;
-    float* sq_g = a.sq_out + (size_t)g * kGroupCap * K;
-    int32_t* idx_g = a.idx_out + (size_t)g * kGroupCap * K;
-    if (present == 0u || real == 0ull) {
-      for (int e = tid; e < kGroupCap * K; e += kThreads) {
-        sq_g[e] = CUDART_INF_F;
-        idx_g[e] = 0;
-      }
-      continue;
-    }
-    const int n_q = __popcll(real);
-    const int n_p = __popc(present);
-    const int n_cand = n_p * a.slots;
-
-    // 2. compaction tables, then the present rows, asynchronously
-    if (warp == 0 && bid >= 0) {
-      const int r = __popc(present & ((1u << lane) - 1u));
-      s_bucket[r] = lane;
-      s_bid[r] = bid;
-    }
-    if (tid < kGroupCap && ((real >> tid) & 1ull)) {
-      s_slot[__popcll(real & ((1ull << tid) - 1ull))] = tid;
-    }
-    __syncthreads();
-    if (a.vec16) {
-      const int chunks = row / 4;
-      for (int e = tid; e < n_p * chunks; e += kThreads) {
-        const int r = e / chunks, c = e - r * chunks;
-        cp_async_16(cand + r * row + c * 4, a.map_pts + (size_t)s_bid[r] * row + c * 4);
-      }
-    } else {
-      for (int e = tid; e < n_p * row; e += kThreads) {
-        const int r = e / row;
-        cp_async_4(cand + e, a.map_pts + (size_t)s_bid[r] * row + (e - r * row));
-      }
-    }
+  // 1. prologue: every warp takes the same ballots, so the masks are uniform
+  //    over the CTA
+  const int bid = lane < a.nb ? a.bucket_ids[(size_t)g * a.nb + lane] : -1;
+  const unsigned present = __ballot_sync(0xffffffffu, bid >= 0);
+  const float* qg = a.order_q + (size_t)g * kGroupCap * 3;
+  const unsigned real_lo = __ballot_sync(0xffffffffu, qg[lane * 3] != kFar);
+  const unsigned real_hi = __ballot_sync(0xffffffffu, qg[(lane + 32) * 3] != kFar);
+  const unsigned long long real = ((unsigned long long)real_hi << 32) | real_lo;
+  float* sq_g = a.sq_out + (size_t)g * kGroupCap * K;
+  int32_t* idx_g = a.idx_out + (size_t)g * kGroupCap * K;
+  if (present == 0u || real == 0ull) {
     for (int e = tid; e < kGroupCap * K; e += kThreads) {
-      if (!((real >> (e / K)) & 1ull)) {
-        sq_g[e] = CUDART_INF_F;
-        idx_g[e] = 0;
-      }
+      sq_g[e] = CUDART_INF_F;
+      idx_g[e] = 0;
     }
-    cp_async_wait_all();
-    __syncthreads();
+    return;
+  }
+  const int n_q = __popcll(real);
+  const int n_p = __popc(present);
+  const int n_cand = n_p * a.slots;
 
-    // 3. L lanes per real query
-    int L = a.lanes;
-    if (L == 0) {
-      L = 32;
-      while (L > 1 && L * n_q > kThreads) L >>= 1;
+  // 2. compaction tables, then the present rows, asynchronously
+  if (warp == 0 && bid >= 0) {
+    const int r = __popc(present & ((1u << lane) - 1u));
+    s_bucket[r] = lane;
+    s_bid[r] = bid;
+  }
+  if (tid < kGroupCap && ((real >> tid) & 1ull)) {
+    s_slot[__popcll(real & ((1ull << tid) - 1ull))] = tid;
+  }
+  __syncthreads();
+  if (a.vec16) {
+    const int chunks = row / 4;
+    for (int e = tid; e < n_p * chunks; e += kThreads) {
+      const int r = e / chunks, c = e - r * chunks;
+      cp_async_16(cand + r * row + c * 4, a.map_pts + (size_t)s_bid[r] * row + c * 4);
     }
-    const int seg = tid / L, sl = tid & (L - 1), per_pass = kThreads / L;
-    const int warp_first = warp * 32 / L;  // a warp-uniform trip count keeps
-                                           // every lane in the shuffles
-    const float cx = a.centers[g * 3 + 0], cy = a.centers[g * 3 + 1],
-                cz = a.centers[g * 3 + 2];
-    for (int j0 = 0; warp_first + j0 < n_q; j0 += per_pass) {
-      const int j = seg + j0;
-      const bool active = j < n_q;
-      const int slot = active ? s_slot[j] : 0;
-      const float qx = __fsub_rn(qg[slot * 3 + 0], cx);
-      const float qy = __fsub_rn(qg[slot * 3 + 1], cy);
-      const float qz = __fsub_rn(qg[slot * 3 + 2], cz);
+  } else {
+    for (int e = tid; e < n_p * row; e += kThreads) {
+      const int r = e / row;
+      cp_async_4(cand + e, a.map_pts + (size_t)s_bid[r] * row + (e - r * row));
+    }
+  }
+  for (int e = tid; e < kGroupCap * K; e += kThreads) {
+    if (!((real >> (e / K)) & 1ull)) {
+      sq_g[e] = CUDART_INF_F;
+      idx_g[e] = 0;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
 
-      float bd[K];
-      int bi[K];
+  // 3. L lanes per real query
+  int L = 32;
+  while (L > 1 && L * n_q > kThreads) L >>= 1;
+  const int seg = tid / L, sl = tid & (L - 1), per_pass = kThreads / L;
+  const int warp_first = warp * 32 / L;  // a warp-uniform trip count keeps
+                                         // every lane in the shuffles
+  const float cx = a.centers[g * 3 + 0], cy = a.centers[g * 3 + 1],
+              cz = a.centers[g * 3 + 2];
+  for (int j0 = 0; warp_first + j0 < n_q; j0 += per_pass) {
+    const int j = seg + j0;
+    const bool active = j < n_q;
+    const int slot = active ? s_slot[j] : 0;
+    const float qx = __fsub_rn(qg[slot * 3 + 0], cx);
+    const float qy = __fsub_rn(qg[slot * 3 + 1], cy);
+    const float qz = __fsub_rn(qg[slot * 3 + 2], cz);
+
+    float bd[K];
+    int bi[K];
 #pragma unroll
-      for (int t = 0; t < K; ++t) {
-        bd[t] = CUDART_INF_F;
-        bi[t] = kNoCand;
-      }
-      const int end = active ? n_cand : 0;
-      for (int i = sl; i < end; i += L) {
-        const float dx = __fsub_rn(qx, __fsub_rn(cand[3 * i + 0], cx));
-        const float dy = __fsub_rn(qy, __fsub_rn(cand[3 * i + 1], cy));
-        const float dz = __fsub_rn(qz, __fsub_rn(cand[3 * i + 2], cz));
-        const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                  __fmul_rn(dz, dz));
-        if (d < bd[K - 1]) {
-          // insert after every entry <= d: a lane meets its candidates in
-          // increasing index, so equal distances stay in index order
+    for (int t = 0; t < K; ++t) {
+      bd[t] = CUDART_INF_F;
+      bi[t] = kNoCand;
+    }
+    const int end = active ? n_cand : 0;
+    for (int i = sl; i < end; i += L) {
+      const float dx = __fsub_rn(qx, __fsub_rn(cand[3 * i + 0], cx));
+      const float dy = __fsub_rn(qy, __fsub_rn(cand[3 * i + 1], cy));
+      const float dz = __fsub_rn(qz, __fsub_rn(cand[3 * i + 2], cz));
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      if (d < bd[K - 1]) {
+        // insert after every entry <= d: a lane meets its candidates in
+        // increasing index, so equal distances stay in index order
 #pragma unroll
-          for (int t = K - 1; t >= 0; --t) {
-            const bool above = (t > 0) && (d < bd[t > 0 ? t - 1 : 0]);
-            if (above) {
-              bd[t] = bd[t - 1];
-              bi[t] = bi[t - 1];
-            } else if (d < bd[t]) {
-              bd[t] = d;
-              bi[t] = i;
-            }
+        for (int t = K - 1; t >= 0; --t) {
+          const bool above = (t > 0) && (d < bd[t > 0 ? t - 1 : 0]);
+          if (above) {
+            bd[t] = bd[t - 1];
+            bi[t] = bi[t - 1];
+          } else if (d < bd[t]) {
+            bd[t] = d;
+            bi[t] = i;
           }
         }
       }
+    }
 
-      // k rounds of a lexicographic (d, idx) minimum over the L lanes' heads
-      float* sq_q = sq_g + slot * K;
-      int32_t* idx_q = idx_g + slot * K;
+    // k rounds of a lexicographic (d, idx) minimum over the L lanes' heads
+    float* sq_q = sq_g + slot * K;
+    int32_t* idx_q = idx_g + slot * K;
 #pragma unroll
-      for (int r = 0; r < K; ++r) {
-        float md = bd[0];
-        int mi = bi[0];
-        for (int off = L >> 1; off > 0; off >>= 1) {
-          const float od = __shfl_xor_sync(0xffffffffu, md, off);
-          const int oi = __shfl_xor_sync(0xffffffffu, mi, off);
-          if (lex_less(od, oi, md, mi)) {
-            md = od;
-            mi = oi;
-          }
-        }
-        if (bi[0] == mi) {  // the owner (candidate indices are unique) pops
-#pragma unroll
-          for (int t = 0; t < K - 1; ++t) {
-            bd[t] = bd[t + 1];
-            bi[t] = bi[t + 1];
-          }
-          bd[K - 1] = CUDART_INF_F;
-          bi[K - 1] = kNoCand;
-        }
-        if (active && sl == 0) {
-          sq_q[r] = md;
-          idx_q[r] = mi < n_cand ? s_bucket[mi / a.slots] * a.slots + mi % a.slots : 0;
+    for (int r = 0; r < K; ++r) {
+      float md = bd[0];
+      int mi = bi[0];
+      for (int off = L >> 1; off > 0; off >>= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, md, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, mi, off);
+        if (lex_less(od, oi, md, mi)) {
+          md = od;
+          mi = oi;
         }
       }
+      if (bi[0] == mi) {  // the owner (candidate indices are unique) pops
+#pragma unroll
+        for (int t = 0; t < K - 1; ++t) {
+          bd[t] = bd[t + 1];
+          bi[t] = bi[t + 1];
+        }
+        bd[K - 1] = CUDART_INF_F;
+        bi[K - 1] = kNoCand;
+      }
+      if (active && sl == 0) {
+        sq_q[r] = md;
+        idx_q[r] = mi < n_cand ? s_bucket[mi / a.slots] * a.slots + mi % a.slots : 0;
+      }
     }
-    __syncthreads();  // the next group rewrites the tables and the rows
   }
 }
 
 template <int K>
-cudaError_t launch(const Args& a, int grid, cudaStream_t stream) {
+cudaError_t launch(const Args& a, int g_max, cudaStream_t stream) {
   const size_t smem = (size_t)a.nb * a.slots * 3 * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         knn_grouped_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  if (grid == 0) {
-    grid = a.g_max;  // one CTA per group
-  } else if (grid < 0) {  // persistent: as many CTAs as fit on the card at once
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, knn_grouped_kernel<K>,
-                                                          kThreads, smem);
-    if (err != cudaSuccess) return err;
-    grid = sms * (per_sm > 0 ? per_sm : 1);
-    if (grid > a.g_max) grid = a.g_max;
-  }
-  knn_grouped_kernel<K><<<grid, kThreads, smem, stream>>>(a);
+  knn_grouped_kernel<K><<<g_max, kThreads, smem, stream>>>(a);  // one CTA per group
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Like knn_grouped_launch, with the launch shape open: `grid` CTAs (0: one
-// per group; < 0: as many as are resident on the card at once, each looping
-// over groups) and `lanes` per real query (0: the rule in the note above;
-// else a power of two 1..32).  Returns a cudaError_t value (0 on success).
-extern "C" int knn_grouped_launch_config(const void* bucket_ids, const void* order_q,
-                                         const void* centers, const void* map_pts,
-                                         void* sq_out, void* idx_out, int g_max, int nb,
-                                         int k, int slots, int grid, int lanes,
-                                         void* stream) {
+// Every pointer is device memory laid out as documented on `Args`; the
+// Python wrapper checks shapes, dtypes and contiguity.  Returns a
+// cudaError_t value (0 on success).
+extern "C" int knn_grouped_launch(const void* bucket_ids, const void* order_q,
+                                  const void* centers, const void* map_pts, void* sq_out,
+                                  void* idx_out, int g_max, int nb, int k, int slots,
+                                  void* stream) {
   if (g_max <= 0) return (int)cudaSuccess;
-  if (nb < 1 || nb > kMaxNb || slots < 1 || lanes < 0 || lanes > 32 ||
-      (lanes & (lanes - 1)) != 0)
-    return (int)cudaErrorInvalidValue;
+  if (nb < 1 || nb > kMaxNb || slots < 1) return (int)cudaErrorInvalidValue;
   Args a;
   a.bucket_ids = static_cast<const int32_t*>(bucket_ids);
   a.order_q = static_cast<const float*>(order_q);
@@ -325,32 +302,19 @@ extern "C" int knn_grouped_launch_config(const void* bucket_ids, const void* ord
   a.map_pts = static_cast<const float*>(map_pts);
   a.sq_out = static_cast<float*>(sq_out);
   a.idx_out = static_cast<int32_t*>(idx_out);
-  a.g_max = g_max;
   a.nb = nb;
   a.slots = slots;
-  a.lanes = lanes;
   a.vec16 = (slots * 3) % 4 == 0 && reinterpret_cast<uintptr_t>(map_pts) % 16 == 0;
   auto st = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 1: return (int)launch<1>(a, grid, st);
-    case 2: return (int)launch<2>(a, grid, st);
-    case 3: return (int)launch<3>(a, grid, st);
-    case 4: return (int)launch<4>(a, grid, st);
-    case 5: return (int)launch<5>(a, grid, st);
-    case 6: return (int)launch<6>(a, grid, st);
-    case 7: return (int)launch<7>(a, grid, st);
-    case 8: return (int)launch<8>(a, grid, st);
+    case 1: return (int)launch<1>(a, g_max, st);
+    case 2: return (int)launch<2>(a, g_max, st);
+    case 3: return (int)launch<3>(a, g_max, st);
+    case 4: return (int)launch<4>(a, g_max, st);
+    case 5: return (int)launch<5>(a, g_max, st);
+    case 6: return (int)launch<6>(a, g_max, st);
+    case 7: return (int)launch<7>(a, g_max, st);
+    case 8: return (int)launch<8>(a, g_max, st);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// The main path's entry point: one CTA per group, the lanes rule.  Every
-// pointer is device memory laid out as documented on `Args`; the Python
-// wrapper checks shapes, dtypes and contiguity.
-extern "C" int knn_grouped_launch(const void* bucket_ids, const void* order_q,
-                                  const void* centers, const void* map_pts, void* sq_out,
-                                  void* idx_out, int g_max, int nb, int k, int slots,
-                                  void* stream) {
-  return knn_grouped_launch_config(bucket_ids, order_q, centers, map_pts, sq_out, idx_out,
-                                   g_max, nb, k, slots, 0, 0, stream);
 }

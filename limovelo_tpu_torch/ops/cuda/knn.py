@@ -166,12 +166,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(bucket_ids, order_q, centers, map_pts, k: int, grid: int = 0, lanes: int = 0,
-            out=None):
-    """Launch `csrc/knn_grouped.cu` on PyTorch's current stream.  `grid` and
-    `lanes` open the launch shape for measurement (0 and 0: the main path's,
-    see `knn_grouped_launch_config` in the source); `out` = (sq, idx) are
-    written in place of fresh outputs."""
+def _launch(bucket_ids, order_q, centers, map_pts, k: int, out=None):
+    """Launch `csrc/knn_grouped.cu` on PyTorch's current stream; `out` =
+    (sq, idx) are written in place of fresh outputs."""
     from .build import load
 
     dev = order_q.device
@@ -192,19 +189,12 @@ def _launch(bucket_ids, order_q, centers, map_pts, k: int, grid: int = 0, lanes:
     sq, idx = out
     _check(sq, "sq", torch.float32, (G, GROUP_CAP, k), dev)
     _check(idx, "idx", torch.int32, (G, GROUP_CAP, k), dev)
-    lib = load("knn_grouped")
-    args = [bucket_ids.data_ptr(), order_q.data_ptr(), centers.data_ptr(), map_pts.data_ptr(),
-            sq.data_ptr(), idx.data_ptr(), G, NB, k, S]
-    if grid == 0 and lanes == 0:
-        fn = lib.knn_grouped_launch
-        n_int = 4
-    else:
-        fn = lib.knn_grouped_launch_config
-        args += [grid, lanes]
-        n_int = 6
+    fn = load("knn_grouped").knn_grouped_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    err = fn(bucket_ids.data_ptr(), order_q.data_ptr(), centers.data_ptr(), map_pts.data_ptr(),
+             sq.data_ptr(), idx.data_ptr(), G, NB, k, S,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_grouped kernel launch failed: cudaError {err}")
     knn_grouped.launches += 1

@@ -73,19 +73,19 @@ def test_knn_grouped_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,nb,grid,lanes,unaligned", [
-    (1, 27, 0, 0, False), (5, 27, 0, 0, False), (8, 32, 0, 0, False), (5, 27, -1, 0, False),
-    (5, 32, 0, 1, False), (8, 27, 0, 32, False), (5, 27, 0, 0, True)])
-def test_knn_grouped_kernel_contract_adversarial(cuda_device, k, nb, grid, lanes, unaligned):
+@pytest.mark.parametrize("k,nb,unaligned", [
+    (1, 27, False), (5, 27, False), (8, 32, False), (5, 32, False), (8, 27, False),
+    (5, 27, True), (1, 32, True)])
+def test_knn_grouped_kernel_contract_adversarial(cuda_device, k, nb, unaligned):
     """The raw outputs on groups built to break a kernel (tests/knn_cases.py:
     a full group and a one-query group, an all-absent group and one past the
     last, mirrored and duplicated map points that tie exactly, 5-33 real
     queries, non-prefix slots, a bucket with two points, 64 padding rows)
     meet the output contract against the plain version: bit-identical d and
     idx below 1e16, and every entry written (outputs start as NaN and -7).
-    At k = 1, 5 and 8, NB = 27 and 32, the main path's launch and the
-    persistent grid, the lanes rule and fixed 1 and 32 lanes per query, and
-    a map table 4 bytes off 16-byte alignment (the 4-byte copy path)."""
+    The groups' real-query counts take the lanes rule through 32, 16, 8 and
+    4 lanes per query.  At k = 1, 5 and 8, NB = 27 and 32, and with a map
+    table 4 bytes off 16-byte alignment (the 4-byte copy path)."""
     bids, oq, ctr, pts = (torch.as_tensor(a, device=cuda_device)
                           for a in adversarial_groups(11, nb))
     if unaligned:
@@ -97,7 +97,7 @@ def test_knn_grouped_kernel_contract_adversarial(cuda_device, k, nb, grid, lanes
     out = (torch.full((G, gk.GROUP_CAP, k), float("nan"), device=cuda_device),
            torch.full((G, gk.GROUP_CAP, k), -7, dtype=torch.int32, device=cuda_device))
     before = gk.knn_grouped.launches
-    got = gk._launch(bids, oq, ctr, pts, k, grid=grid, lanes=lanes, out=out)
+    got = gk._launch(bids, oq, ctr, pts, k, out=out)
     torch.cuda.synchronize()
     assert gk.knn_grouped.launches == before + 1
     want = gk.group_topk_plain(bids, oq, ctr, pts, k)

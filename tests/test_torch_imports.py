@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `limovelo_tpu_torch`, and not
-chip_smoke.py, imports JAX or the JAX package, and its entry points run on
+"""The port stands alone: no module of `limovelo_tpu_torch`, and neither
+chip_smoke.py nor compare_knn_kernel.py, imports JAX or the JAX package, and
+its entry points run on
 the card unless the caller asks for the CPU."""
 
 import ast
@@ -46,7 +47,7 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_no_jax_import_in_sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "compare_knn_kernel.py"]
     found = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
