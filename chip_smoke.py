@@ -22,8 +22,30 @@ Phases, each printing one JSON line with its elapsed seconds:
            and read just after, and each window must have launched the kernel
   cpu      the first 0.5 s replayed on the CPU (plain versions) must give the
            same records, positions within 5 mm of the card's
+  offline  mapping="offline" on the same stream: ATE below max(3 x main ATE,
+           0.15 m), one map growth event per rotation (at least half as many,
+           at most as many plus 2), and its own first 0.5 s on the CPU
+           (offline_cpu) within 5 mm
+  hd_map   save_map of the main run's map into build/, then from_hd_map over
+           the stream with the map frozen: keys, pts and cell_d2 equal before
+           and after, ATE < 0.30 m
+  checkpoint  feed to 1.55 s, save_checkpoint, load_checkpoint into a fresh
+           card pipeline, feed the rest: the main run's record times,
+           positions within 2 mm; the npz size and the save and load seconds
+  prune    map_prune_radius=25, map_prune_every=0.5 on an 8 s corridor run
+           (sensor range 30 m): the bucket count falls, and its second half
+           plateaus (max < 1.3 min + 50); a prune call's device time
+  slam     SlamPipeline on a 9 s run of a 4 m circle at 0.8 rad/s, with
+           full-rotation (10 Hz) windows, so that a keyframe holds a whole
+           scan: at least
+           15 keyframes, optimized keyframes within 1 m of the odometry; with
+           1 deg and 1 cm of drift injected per keyframe edge, at least one
+           loop closes and the optimized keyframe ATE is below half the
+           drifted one
 
-then the kernels line, nvidia-smi's line and, last,
+Every phase on the card counts its own kernel launches (set to 0 just
+before it, read just after) and fails if a window launched none; the
+kernels line sums them.  Then the kernels line, nvidia-smi's line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result.  It needs one card, builds into
 build/ beside this file, and exits non-zero without a card or without the
@@ -38,6 +60,7 @@ and idle share, the top ops by host and by device time).
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -56,10 +79,21 @@ PEAK_F32_FLOP_PER_S = 67e12
 SIM = dict(lidar_lines=16, pts_per_line=1800, imu_rate=400.0, duration=3.0)
 CPU_REPLAY_S = 0.5
 POS_TOL_M = 0.005
+CHECKPOINT_AT_S = 1.55       # the checkpoint phase's cut, into the stream
+RESUME_TOL_M = 0.002
+PRUNE_S = 8.0                # the prune phase's corridor run
+#: the prune phase's sensor range: beyond the 25 m radius, the corridor
+#: ahead refills between two prunes, so the bucket count saws between the
+#: map just after a prune (25 m each way) and just before the next (the
+#: 4 m driven behind, the range ahead); at 40 m and 1800 columns that alone
+#: spans 1.33x, at 30 m about 1.2x
+PRUNE_RANGE_M = 30.0
+SLAM_S = 9.0                 # the slam phase's run: more than one revolution
 MIN_MATCH_FRAC = 0.15
 D2_ATOL = 1e-5
 K = 5
 SPIN_CYCLES = 10_000_000     # ~5 ms at the H100's 1.98 GHz boost clock
+DEVICE = "cuda"              # where the main path's phases run
 
 _T0 = time.perf_counter()
 
@@ -288,14 +322,13 @@ def cast_views(world, sim, fractions):
     return np.concatenate(clouds).astype(np.float32), sim.gt_p[i]
 
 
-def replay(sim, device, count_windows: bool):
-    """Replay `sim` through the port's LioPipeline on `device`; returns the
-    pipeline and, per window, (kernel launches, accepted, seconds)."""
-    from limovelo_tpu_torch.io.simulate import replay_into
+def drive(pipe, feed):
+    """Run `feed(pipe)` with every kernel's launch count set to 0 just
+    before and read just after; returns (per window: launches, accepted,
+    seconds; the launches).  On the card, every window must have launched
+    the grouped kernel."""
     from limovelo_tpu_torch.ops.cuda import knn
-    from limovelo_tpu_torch.runtime.pipeline import LioPipeline
 
-    pipe = LioPipeline(main_config(), device=device)
     windows = []
     step = pipe.step_window
 
@@ -306,10 +339,39 @@ def replay(sim, device, count_windows: bool):
                         time.perf_counter() - t0))
         return rec
 
-    if count_windows:
-        pipe.step_window = counted
-    replay_into(pipe, sim)
-    return pipe, windows
+    pipe.step_window = counted
+    knn.knn_grouped.launches = 0
+    feed(pipe)
+    launches = knn.knn_grouped.launches
+    per_win = np.array([w[0] for w in windows])
+    if pipe.device.type == "cuda" and (not windows or not np.all(per_win >= 1)):
+        raise AssertionError(f"windows without a kernel launch: {int((per_win < 1).sum())}"
+                             f"/{len(windows)}")
+    return windows, launches
+
+
+def window_stats(windows, launches) -> dict:
+    step_s = np.array([w[2] for w in windows])
+    return dict(windows=len(windows), kernel_launches=int(launches),
+                launches_per_window=float(launches / len(windows)),
+                step_p50_ms=float(np.percentile(step_s, 50) * 1e3),
+                step_p95_ms=float(np.percentile(step_s, 95) * 1e3),
+                windows_per_s=float(len(windows) / step_s.sum()))
+
+
+def replay(sim, config, device=None):
+    """The port's LioPipeline on `device` (DEVICE by default) over the whole
+    stream, counted."""
+    from limovelo_tpu_torch.runtime.pipeline import LioPipeline
+
+    pipe = LioPipeline(config, device=device or DEVICE)
+    return (pipe,) + drive(pipe, whole(sim))
+
+
+def whole(sim):
+    from limovelo_tpu_torch.io.simulate import feed_scans
+
+    return lambda pipe: feed_scans(pipe, sim, 0, len(sim.scans))
 
 
 def truncate(sim, t_end: float):
@@ -324,41 +386,35 @@ def truncate(sim, t_end: float):
                    gt_t=sim.gt_t, gt_R=sim.gt_R, gt_p=sim.gt_p)
 
 
-def main_phase(sim, device="cuda"):
-    from limovelo_tpu_torch.ops.cuda import knn
+def checked_result(pipe, windows, sim):
+    """The run's records, checked: one per accepted window, finite poses;
+    returns (result, ATE)."""
     from limovelo_tpu_torch.runtime.evaluate import ate_rmse
 
-    knn.knn_grouped.launches = 0          # every kernel's count, just before the main path
-    t0 = time.perf_counter()
-    pipe, windows = replay(sim, device, count_windows=True)
     res = pipe.result
-    wall = time.perf_counter() - t0
-    launches = knn.knn_grouped.launches   # read just after
-
-    n_win = len(windows)
-    per_win = np.array([w[0] for w in windows])
-    step_s = np.array([w[2] for w in windows])
-    on_card = torch.device(device).type == "cuda"
-    if on_card and (n_win == 0 or not np.all(per_win >= 1)):
-        raise AssertionError(f"windows without a kernel launch: {int((per_win < 1).sum())}/{n_win}")
     accepted = sum(w[1] for w in windows)
-    if (on_card and launches < accepted) or accepted != len(res.records) or not res.records:
-        raise AssertionError(f"launches {launches}, accepted {accepted}, records {len(res.records)}")
-    pos = res.positions
-    if not np.all(np.isfinite(pos)) or not np.all(np.isfinite(res.rotations)):
+    if accepted != len(res.records) or not res.records:
+        raise AssertionError(f"accepted {accepted}, records {len(res.records)}")
+    if not np.all(np.isfinite(res.positions)) or not np.all(np.isfinite(res.rotations)):
         raise AssertionError("non-finite pose")
+    return res, ate_rmse(res.times, res.positions, sim.gt_t, sim.gt_R, sim.gt_p)[0]
+
+
+def main_phase(sim):
+    t0 = time.perf_counter()
+    pipe, windows, launches = replay(sim, main_config())
+    res, ate = checked_result(pipe, windows, sim)
+    wall = time.perf_counter() - t0
+    on_card = pipe.device.type == "cuda"
+    if on_card and launches < len(res.records):
+        raise AssertionError(f"launches {launches} < records {len(res.records)}")
     ds = np.array([r.ds_count for r in res.records], float)
     nm = np.array([r.num_matches for r in res.records], float)
     match_frac = float(nm[1:].sum() / ds[1:].sum())
-    ate, _ = ate_rmse(res.times, pos, sim.gt_t, sim.gt_R, sim.gt_p)
     stats = dict(
-        windows=n_win, records=len(res.records), kernel_launches=int(launches),
-        launches_per_window=float(per_win.mean()), ate_m=ate,
+        **window_stats(windows, launches), records=len(res.records), ate_m=ate,
         mean_ds_count=float(ds.mean()), mean_matches=float(nm.mean()), match_frac=match_frac,
-        step_p50_ms=float(np.percentile(step_s, 50) * 1e3),
-        step_p95_ms=float(np.percentile(step_s, 95) * 1e3),
-        windows_per_s=float(n_win / step_s.sum()), replay_wall_s=wall,
-        collapsed_windows=pipe.collapsed_windows,
+        replay_wall_s=wall, collapsed_windows=pipe.collapsed_windows,
         stage_p50_ms={k: v["p50_ms"] for k, v in pipe.timers.summary().items()},
         peak_mem_mb=torch.cuda.max_memory_allocated() / 2 ** 20 if on_card else None)
     phase("main", **stats)
@@ -370,21 +426,238 @@ def main_phase(sim, device="cuda"):
     # sits well below the reference
     if match_frac < MIN_MATCH_FRAC or not np.all(nm[1:] > 0):
         raise AssertionError(f"matches are {match_frac:.3f} of the downsampled points")
-    return res, stats
+    return pipe, res, stats
 
 
-def cpu_phase(sim, res_card):
+def cpu_phase(sim, res_card, config, name="cpu"):
+    """The stream's first CPU_REPLAY_S seconds on the CPU (plain versions):
+    the card's first records, positions within POS_TOL_M."""
     t0 = time.perf_counter()
-    pipe, _ = replay(truncate(sim, CPU_REPLAY_S), "cpu", count_windows=False)
+    pipe, _, _ = replay(truncate(sim, CPU_REPLAY_S), config, "cpu")
     cpu = pipe.result
     n = len(cpu.records)
     if n < 3 or not np.array_equal(cpu.times, res_card.times[:n]):
-        raise AssertionError(f"CPU records {cpu.times} are not the card's first {n}: "
+        raise AssertionError(f"{name}: CPU records {cpu.times} are not the card's first {n}: "
                              f"{res_card.times[:n]}")
     d = np.linalg.norm(cpu.positions - res_card.positions[:n], axis=1)
-    phase("cpu", records=n, max_pos_diff_m=float(d.max()), seconds=time.perf_counter() - t0)
+    phase(name, records=n, max_pos_diff_m=float(d.max()), seconds=time.perf_counter() - t0)
     if d.max() >= POS_TOL_M:
-        raise AssertionError(f"card vs CPU positions differ by {d.max()} m")
+        raise AssertionError(f"{name}: card vs CPU positions differ by {d.max()} m")
+
+
+def growth_events(records) -> int:
+    """Records whose map holds more points than the one before (the
+    telemetry shows the map after the previous map update)."""
+    mp = np.array([r.map_points for r in records])
+    return int(np.sum(np.diff(mp) > 0))
+
+
+def offline_phase(sim, main_ate: float):
+    """Offline mapping: the map updated once per rotation by re-deskewing
+    it with the final states."""
+    t0 = time.perf_counter()
+    config = main_config().replace(mapping="offline")
+    pipe, windows, launches = replay(sim, config)
+    res, ate = checked_result(pipe, windows, sim)
+    events = growth_events(res.records)
+    rotations = (res.times[-1] - res.times[0]) / config.full_rotation_time
+    stats = dict(**window_stats(windows, launches), records=len(res.records), ate_m=ate,
+                 growth_events=events, rotations=rotations,
+                 collapsed_windows=pipe.collapsed_windows,
+                 offline_map_p50_ms=pipe.timers.summary()["offline_map"]["p50_ms"],
+                 seconds=time.perf_counter() - t0)
+    phase("offline", **stats)
+    if ate >= max(3.0 * main_ate, 0.15):
+        raise AssertionError(f"offline ATE {ate} m against online {main_ate} m")
+    if not 0.5 * rotations <= events <= rotations + 2:
+        raise AssertionError(f"{events} map growth events for {rotations:.1f} rotations")
+    cpu_phase(sim, res, config, "offline_cpu")
+    return stats
+
+
+def hd_map_phase(sim, main_pipe):
+    """`save_map` of the main run's map, then `from_hd_map` over the same
+    stream with the map frozen: the map's tables equal before and after."""
+    from limovelo_tpu_torch.runtime.checkpoint import save_map
+    from limovelo_tpu_torch.runtime.pipeline import LioPipeline
+
+    t0 = time.perf_counter()
+    path = ROOT / "build" / "hd_map.npz"
+    path.parent.mkdir(exist_ok=True)
+    save_map(str(path), main_pipe.map, main_pipe.grid)
+    pipe = LioPipeline.from_hd_map(main_config(), str(path), device=DEVICE)
+    if pipe.config.mapping_mode != "none":
+        raise AssertionError(f"mapping mode {pipe.config.mapping_mode}")
+    before = {k: getattr(pipe._preloaded_map, k).clone() for k in ("keys", "pts", "cell_d2")}
+    n_before = int(pipe._preloaded_map.num_points)
+    windows, launches = drive(pipe, whole(sim))
+    res, ate = checked_result(pipe, windows, sim)
+    same = all(torch.equal(getattr(pipe.map, k), v) for k, v in before.items())
+    stats = dict(**window_stats(windows, launches), records=len(res.records), ate_m=ate,
+                 map_points=n_before, map_npz_bytes=path.stat().st_size, map_unchanged=same,
+                 seconds=time.perf_counter() - t0)
+    phase("hd_map", **stats)
+    if not same or int(pipe.map.num_points) != n_before:
+        raise AssertionError("the frozen HD map changed")
+    if ate >= 0.30:
+        raise AssertionError(f"frozen-map ATE {ate} m >= 0.30 m")
+    return stats
+
+
+def checkpoint_phase(sim, res_main):
+    """Feed to CHECKPOINT_AT_S, save_checkpoint, load_checkpoint into a
+    fresh card pipeline, feed the rest: the records and positions of the
+    main run."""
+    from limovelo_tpu_torch.io.simulate import feed_scans
+    from limovelo_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
+    from limovelo_tpu_torch.runtime.pipeline import LioPipeline
+
+    t0 = time.perf_counter()
+    n = len(sim.scans)
+    cut = int(sum(s.t[-1] < sim.scans[0].stamp + CHECKPOINT_AT_S for s in sim.scans))
+    path = ROOT / "build" / "checkpoint.npz"
+    path.parent.mkdir(exist_ok=True)
+    first = LioPipeline(main_config(), device=DEVICE)
+    w1, l1 = drive(first, lambda p: feed_scans(p, sim, 0, cut))
+    ts = time.perf_counter()
+    save_checkpoint(str(path), first)
+    save_s = time.perf_counter() - ts
+    second = LioPipeline(main_config(), device=DEVICE)
+    ts = time.perf_counter()
+    load_checkpoint(str(path), second)
+    load_s = time.perf_counter() - ts
+    w2, l2 = drive(second, lambda p: feed_scans(p, sim, cut, n))
+    times = np.concatenate([first.result.times, second.result.times])
+    pos = np.concatenate([first.result.positions, second.result.positions])
+    same_times = np.array_equal(times, res_main.times)
+    d = np.linalg.norm(pos - res_main.positions, axis=1) if same_times else np.array([np.inf])
+    stats = dict(**window_stats(w1 + w2, l1 + l2), cut_scans=cut,
+                 records_before=len(first.result.records), records_after=len(second.result.records),
+                 same_record_times=same_times, max_pos_diff_m=float(d.max()),
+                 npz_bytes=os.path.getsize(path), save_s=save_s, load_s=load_s,
+                 seconds=time.perf_counter() - t0)
+    phase("checkpoint", **stats)
+    if not same_times or not second.result.records:
+        raise AssertionError("the resumed run's records are not the main run's")
+    if d.max() >= RESUME_TOL_M:
+        raise AssertionError(f"resumed positions differ by {d.max()} m")
+    return stats
+
+
+def prune_phase():
+    """The prune policy on a long corridor: the map's bucket count falls at
+    the prunes and stops growing."""
+    from limovelo_tpu_torch.io.simulate import corridor_trajectory, corridor_world, simulate
+    from limovelo_tpu_torch.mapping import hashgrid as hg
+
+    t0 = time.perf_counter()
+    config = main_config().replace(map_prune_radius=25.0, map_prune_every=0.5)
+    sim = simulate(corridor_world(length=120.0, width=8.0, pillar_every=6.0),
+                   corridor_trajectory(speed=8.0), config, duration=PRUNE_S,
+                   lidar_lines=SIM["lidar_lines"], pts_per_line=SIM["pts_per_line"],
+                   imu_rate=SIM["imu_rate"], seed=13, max_range=PRUNE_RANGE_M)
+    sim_s = time.perf_counter() - t0
+    pipe, windows, launches = replay(sim, config)
+    res, ate = checked_result(pipe, windows, sim)
+    buckets = np.array([r.map_buckets for r in res.records])
+    tail = buckets[len(buckets) // 2:]
+    m = hg.HashGridMap(*(t.clone() for t in pipe.map))
+    center = torch.as_tensor(res.positions[-1], device=DEVICE)
+    prune_ms = time_ms(lambda: hg.prune(m, center, config.map_prune_radius, pipe.grid))
+    timers = pipe.timers.summary()
+    stats = dict(**window_stats(windows, launches), records=len(res.records), ate_m=ate,
+                 prunes=timers["prune"]["n"], prune_host_p50_ms=timers["prune"]["p50_ms"],
+                 prune_device_ms=prune_ms, bucket_drops=int(np.sum(np.diff(buckets) < 0)),
+                 buckets_max=int(buckets.max()), tail_min=int(tail.min()),
+                 tail_max=int(tail.max()), sim_s=sim_s, seconds=time.perf_counter() - t0)
+    phase("prune", **stats)
+    if stats["bucket_drops"] < 1:
+        raise AssertionError("the map's bucket count never fell")
+    if tail.max() >= 1.3 * tail.min() + 50:
+        raise AssertionError(f"the pruned map still grows: tail {tail.min()}..{tail.max()}")
+    return stats
+
+
+def inject_drift(frames, yaw_per_edge: float, z_per_edge: float = 0.0):
+    """Re-chain the keyframe odometry with an extra yaw (and z) per edge:
+    accumulated heading drift.  Scans are stored in the LiDAR frame, so
+    loop registration then sees the drifted initial guess and the same
+    geometry (tests/test_slam.py)."""
+    from scipy.spatial.transform import Rotation as Rsc
+
+    dRz = Rsc.from_euler("z", yaw_per_edge).as_matrix()
+    R_prev, p_prev = frames[0].R.copy(), frames[0].p.copy()
+    for k in range(1, len(frames)):
+        rel_R = R_prev.T @ frames[k].R
+        rel_p = R_prev.T @ (frames[k].p - p_prev)
+        R_prev, p_prev = frames[k].R.copy(), frames[k].p.copy()
+        frames[k].R = frames[k - 1].R @ (rel_R @ dRz)
+        frames[k].p = frames[k - 1].p + frames[k - 1].R @ rel_p
+        frames[k].p[2] += z_per_edge
+        frames[k].R_opt, frames[k].p_opt = frames[k].R.copy(), frames[k].p.copy()
+
+
+def slam_phase():
+    """SlamPipeline over more than one revolution: keyframes, loop closure
+    and the pose graph; then the keyframe odometry drifted by 1° and 1 cm
+    per edge, loops re-detected, and the optimized keyframes."""
+    from limovelo_tpu_torch.io.simulate import circle_trajectory, room_world, simulate
+    from limovelo_tpu_torch.runtime.evaluate import ate_rmse
+    from limovelo_tpu_torch.runtime.slam import SlamPipeline
+
+    t0 = time.perf_counter()
+    from limovelo_tpu_torch.config import InitializationParams
+
+    # a keyframe stores its window's cloud: with the DEFAULT warm-up's 50 Hz
+    # windows that is a fifth of a rotation, and two fifths seen from the
+    # same place on two laps need not overlap; full-rotation windows, as in
+    # tests/test_slam.py's configuration
+    config = main_config().replace(Initialization=InitializationParams(times=(), deltas=(0.1,)))
+    sim = simulate(room_world(size=24, n_boxes=10), circle_trajectory(radius=4, omega=0.8),
+                   config, duration=SLAM_S, lidar_lines=SIM["lidar_lines"],
+                   pts_per_line=SIM["pts_per_line"], imu_rate=SIM["imu_rate"])
+    sim_s = time.perf_counter() - t0
+    pipe = SlamPipeline(config, device=DEVICE, kf_min_translation=1.0, loop_check_every=2,
+                        loop_min_index_gap=8, loop_max_distance=3.0)
+    windows, launches = drive(pipe, whole(sim))
+    res, ate = checked_result(pipe, windows, sim)
+    frames = pipe.keyframes.frames
+    attempts, closures = len(pipe.loop_stats), len(pipe.loop_edges)
+    _, ps = pipe.optimized_trajectory()
+    spread = float(np.linalg.norm(ps - pipe.keyframes.positions(optimized=False), axis=-1).max())
+    kf_ate = lambda pos: ate_rmse(np.array([f.t for f in frames]), pos, sim.gt_t, sim.gt_R,
+                                  sim.gt_p)[0]
+
+    inject_drift(frames, yaw_per_edge=np.deg2rad(1.0), z_per_edge=0.01)
+    for c in (pipe.loop_edges, pipe.loop_stats, pipe._graph_loops, pipe._closed_pairs):
+        c.clear()
+    ts = time.perf_counter()
+    pipe._check_loops()
+    check_s = time.perf_counter() - ts
+    ate_drifted = kf_ate(pipe.keyframes.positions(optimized=False))
+    ts = time.perf_counter()
+    _, ps_opt = pipe.optimized_trajectory()
+    opt_s = time.perf_counter() - ts
+    ate_opt = kf_ate(ps_opt)
+    attempt = lambda a: (a["i"], a["j"], round(a["rms"], 4), a["matches"], bool(a["accepted"]))
+    stats = dict(**window_stats(windows, launches), records=len(res.records), ate_m=ate,
+                 keyframes=len(frames), loop_attempts=attempts, loop_closures=closures,
+                 optimized_vs_odometry_max_m=spread,
+                 drifted_loop_attempts=len(pipe.loop_stats),
+                 drifted_loop_closures=len(pipe.loop_edges),
+                 drifted_attempts=[attempt(a) for a in pipe.loop_stats],
+                 consensus_rejected=pipe.consensus_rejected, kf_ate_drifted_m=ate_drifted,
+                 kf_ate_optimized_m=ate_opt, drifted_check_loops_s=check_s,
+                 optimize_s=opt_s, sim_s=sim_s, seconds=time.perf_counter() - t0)
+    phase("slam", **stats)
+    if len(frames) < 15:
+        raise AssertionError(f"{len(frames)} keyframes < 15")
+    if spread >= 1.0:
+        raise AssertionError(f"the optimized keyframes moved {spread} m from the odometry")
+    if ate_drifted <= 0.25 or not pipe.loop_edges or ate_opt >= 0.5 * ate_drifted:
+        raise AssertionError(f"loop closure under drift: {len(pipe.loop_edges)} closures, "
+                             f"keyframe ATE {ate_opt} m against {ate_drifted} m drifted")
+    return stats
 
 
 def profile_phase(sim, n_windows: int = 20):
@@ -463,8 +736,16 @@ def main() -> int:
     cases, max_err = kernel_phase(*kernel_views(world, sim))
     phase("kernel", kernel="knn_grouped", max_abs_d2_err=max_err, cases=cases)
 
-    res, stats = main_phase(sim)
-    cpu_phase(sim, res)
+    phase_launches = {}
+    main_pipe, res, stats = main_phase(sim)
+    phase_launches["main"] = stats["kernel_launches"]
+    cpu_phase(sim, res, main_config())
+    phase_launches["offline"] = offline_phase(sim, stats["ate_m"])["kernel_launches"]
+    phase_launches["hd_map"] = hd_map_phase(sim, main_pipe)["kernel_launches"]
+    del main_pipe
+    phase_launches["checkpoint"] = checkpoint_phase(sim, res)["kernel_launches"]
+    phase_launches["prune"] = prune_phase()["kernel_launches"]
+    phase_launches["slam"] = slam_phase()["kernel_launches"]
 
     main_case = next(c for c in cases if c["n"] == 8192 and c["rings"] == 1)
     emit({"kernels": [{
@@ -472,7 +753,7 @@ def main() -> int:
         "route": "cuda",
         "source": "limovelo_tpu_torch/csrc/knn_grouped.cu",
         "replaces": "limovelo_tpu/ops/pallas/knn.py:184",
-        "launches": stats["kernel_launches"],
+        "launches": int(sum(phase_launches.values())),
         "max_abs_err": max_err,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

@@ -12,7 +12,8 @@
 
 `insert` updates the map's point tables in place (they are the large
 tensors: 100 MB of points at the default table size) and returns the map
-with its new keys and counters; the map passed in must not be used again.
+with its new keys and counters; `prune` writes all three tables in place.
+The map passed to either must not be used again.
 """
 
 from __future__ import annotations
@@ -247,6 +248,27 @@ def insert(m: HashGridMap, pts, mask, params: GridParams, downsample: bool = Tru
         num_buckets=m.num_buckets + newly_claimed.to(torch.int32),
         dropped=m.dropped + n_dropped,
     )
+
+
+def prune(m: HashGridMap, center: torch.Tensor, radius: float, params: GridParams) -> HashGridMap:
+    """Forget the buckets whose centre lies farther than `radius` from
+    `center` (world frame): one elementwise pass over the table that bounds
+    map memory on long trajectories.
+
+    A pruned bucket becomes a tombstone (probes continue past it, inserts may
+    reclaim it), its slots FAR and +inf; only live buckets are counted, so a
+    tombstone is never subtracted twice.  Writes `m.keys`, `m.pts` and
+    `m.cell_d2` in place, as `insert` writes its tables: the map passed in
+    must not be used again."""
+    centers = (m.keys.to(m.pts.dtype) + 0.5) * params.coarse_size
+    live = torch.any(m.keys != EMPTY_KEY, dim=-1) & torch.any(m.keys != TOMBSTONE_KEY, dim=-1)
+    far = live & (torch.sqrt(sq_norm3(centers - center)) > radius)
+    slots_dropped = torch.sum(far[:, None] & torch.isfinite(m.cell_d2)).to(torch.int32)
+    m.keys.masked_fill_(far[:, None], TOMBSTONE_KEY)
+    m.pts.masked_fill_(far[:, None, None], FAR)
+    m.cell_d2.masked_fill_(far[:, None], float("inf"))
+    return m._replace(num_points=m.num_points - slots_dropped,
+                      num_buckets=m.num_buckets - torch.sum(far).to(torch.int32))
 
 
 # ---------------------------------------------------------------------------

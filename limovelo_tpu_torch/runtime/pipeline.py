@@ -1,12 +1,11 @@
 """The orchestrator: drives the localize→map loop over accumulated sensors
-(port of `limovelo_tpu/runtime/pipeline.py`, single device, online
-mapping).
+(port of `limovelo_tpu/runtime/pipeline.py`, single device).
 
 Host code here does the time management (t1/t2 and the warm-up delta
 schedule), index bookkeeping, padding and recording; the math runs in
-`step.lio_step` on the pipeline's device.  Each window's telemetry is read
-back right after its step (depth-1 resolution).  The rules that change
-results are the JAX package's:
+`step.lio_step` and `step.mapping_step` on the pipeline's device.  Each
+window's telemetry is read back right after its step (depth-1 resolution).
+The rules that change results are the JAX package's:
 - the host advances `last_time_updated` and its anchor-time bound
   optimistically when the raw window clears MAX_POINTS2MATCH;
 - a window whose voxel downsample collapses below the threshold is consumed
@@ -14,6 +13,12 @@ results are the JAX package's:
   the device's anchor time;
 - the IMU path window is selected from that bound, and the device masks it
   to samples strictly after its own anchor.
+
+Mapping modes (`config.mapping_mode`): "online" inserts every accepted
+window; "offline" re-deskews the last full rotation with the final states
+once per `full_rotation_time` and inserts that; "none" never inserts (a
+frozen map, `from_hd_map`).  With `map_prune_radius > 0` the map forgets
+buckets beyond that radius of the pose every `map_prune_every` seconds.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import logging
 import time as _time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,11 +36,11 @@ from ..config import DynParams
 from ..device import resolve_device
 from ..filter.process import ImuWindow, process_noise_Q
 from ..geometry import state as st
-from ..mapping.hashgrid import GridParams, make_map
+from ..mapping.hashgrid import GridParams, make_map, prune
 from ..step import (TEL_ANCHOR_T, TEL_DELTA_NORM, TEL_DS_COUNT, TEL_EIG, TEL_EXT_R,
                     TEL_EXT_T, TEL_ITERS, TEL_MAP_BUCKETS, TEL_MAP_DROPPED,
                     TEL_MAP_POINTS, TEL_MATCHES, TEL_P, TEL_R, TEL_RESIDUAL,
-                    TEL_UPDATED, TEL_V, StepInputs, lio_step)
+                    TEL_UPDATED, TEL_V, StepInputs, lio_step, mapping_step)
 from .accumulator import Accumulator
 from .profiling import StageTimers
 
@@ -82,17 +87,28 @@ class OdometryResult:
         return np.stack([r.R for r in self.records]) if self.records else np.zeros((0, 3, 3))
 
 
+class AnchorRec(NamedTuple):
+    """One entry of the corrected-state history: the state at an accepted
+    update, the controls that seed a re-deskew path from it, and (for the
+    resolved history) host copies of its pose."""
+
+    t: float
+    x: object          # NavState on the device
+    a: np.ndarray
+    w: np.ndarray
+    R_h: Optional[np.ndarray] = None
+    p_h: Optional[np.ndarray] = None
+
+
 class LioPipeline:
     """Feed sensors in (any interleaving), call `spin()`, read the trajectory
     out of `result`.  Runs on `device` ("cuda" by default; raises when no
     card is present — pass device="cpu" to run the plain versions)."""
 
-    def __init__(self, config, device="cuda", grid: Optional[GridParams] = None):
-        if config.mapping_mode != "online":
-            raise NotImplementedError(
-                f"mapping mode {config.mapping_mode!r}: " + _NOT_PORTED.format(1))
-        if config.map_prune_radius > 0:
-            raise NotImplementedError("map pruning: " + _NOT_PORTED.format(1))
+    def __init__(self, config, device="cuda", grid: Optional[GridParams] = None,
+                 publisher=None):
+        if publisher is not None:
+            raise NotImplementedError("publishers: " + _NOT_PORTED.format(1))
         self.config = config
         self.device = resolve_device(device)
         self.grid = grid or GridParams.from_config(config)
@@ -100,6 +116,7 @@ class LioPipeline:
         self._result = OdometryResult()
 
         self._initialized = False
+        self._preloaded_map = None
         self.map = None
         self.x = None
         self.P = None
@@ -116,6 +133,16 @@ class LioPipeline:
         self.anchor = None
         self.anchor_t: Optional[float] = None
         self.anchor_t_dev = None
+        self.last_map_time: Optional[float] = None
+        # two corrected-state histories, kept apart as in the JAX package
+        # (they differ on collapsed windows): `_anchors_d` is appended at
+        # dispatch whenever the raw count clears the threshold and feeds the
+        # offline re-deskew; `_anchors` is appended at resolution when the
+        # window updated, carries host pose copies, and is checkpointed
+        self._anchors: List[AnchorRec] = []
+        self._anchors_d: List[AnchorRec] = []
+        self._last_prune_t: Optional[float] = None
+        self._last_gpts_dev = None
         self.stream_dead = False
         self._last_processed_t2: float = -np.inf
         # windows whose raw count cleared MAX_POINTS2MATCH but whose voxel
@@ -124,8 +151,19 @@ class LioPipeline:
         self.timers = StageTimers()
 
     @classmethod
-    def from_hd_map(cls, *args, **kwargs):
-        raise NotImplementedError("HD-map prelocalization: " + _NOT_PORTED.format(1))
+    def from_hd_map(cls, config, map_path: str, device="cuda",
+                    grid: Optional[GridParams] = None) -> "LioPipeline":
+        """Localize against a prebuilt HD map (saved by `checkpoint.save_map`
+        of either package).  Unless the config sets `mapping`, the map is
+        frozen (mode "none"): nothing is inserted and the map stays
+        bit-identical for the whole run."""
+        from .checkpoint import load_map
+
+        if config.mapping is None:
+            config = config.replace(mapping="none")
+        pipe = cls(config, device=device, grid=grid)
+        pipe._preloaded_map = load_map(map_path, pipe.grid, device=pipe.device)
+        return pipe
 
     @property
     def result(self) -> OdometryResult:
@@ -146,7 +184,9 @@ class LioPipeline:
         R0 = None if imu0.q is None else Rsc.from_quat(imu0.q).as_matrix()
         self.x = st.make_initial(self.config, R0=R0, device=dev)
         self.P = st.initial_covariance(self.config, device=dev)
-        self.map = make_map(self.grid, device=dev)
+        self.map = self._preloaded_map
+        if self.map is None:
+            self.map = make_map(self.grid, device=dev)
         t0 = self.accum.initial_time
         self.t2 = t0
         self.last_time_updated = t0
@@ -184,6 +224,24 @@ class LioPipeline:
     def _to_dev(self, arr) -> torch.Tensor:
         return torch.as_tensor(arr).to(self.device)
 
+    def _pad_points(self, t1: float, t2: float, rebase: float):
+        """Points with t in (t1, t2], padded to their shape bucket (the
+        newest kept when the window overfills it): (pts, rebased t, mask, n)."""
+        cfg = self.config
+        pts, pts_t, _ = self.accum.get_points(t1, t2)
+        n = len(pts)
+        bucket = cfg.bucket_for(max(n, 1), cfg.point_buckets)
+        if n > bucket:
+            pts, pts_t = pts[-bucket:], pts_t[-bucket:]
+            n = bucket
+        pts_pad = np.zeros((bucket, 3), np.float32)
+        t_pad = np.zeros(bucket, np.float32)
+        mask = np.zeros(bucket, bool)
+        pts_pad[:n] = pts
+        t_pad[:n] = (pts_t - rebase).astype(np.float32)
+        mask[:n] = True
+        return pts_pad, t_pad, mask, n
+
     # ------------------------------------------------------------------
     def step_window(self, t1: float, t2: float) -> Optional[StepRecord]:
         """Run one localization window (t1, t2] and resolve its telemetry;
@@ -193,18 +251,7 @@ class LioPipeline:
         rebase = self.accum.initial_time
 
         with self.timers("assemble"):
-            pts, pts_t, _ = self.accum.get_points(t1, t2)
-            n = len(pts)
-            bucket = cfg.bucket_for(max(n, 1), cfg.point_buckets)
-            if n > bucket:  # overfull window: keep the newest points
-                pts, pts_t = pts[-bucket:], pts_t[-bucket:]
-                n = bucket
-            pts_pad = np.zeros((bucket, 3), np.float32)
-            t_pad = np.zeros(bucket, np.float32)
-            mask = np.zeros(bucket, bool)
-            pts_pad[:n] = pts
-            t_pad[:n] = (pts_t - rebase).astype(np.float32)
-            mask[:n] = True
+            pts_pad, t_pad, mask, n = self._pad_points(t1, t2, rebase)
             imu_f = self._pad_imus_np(*self.accum.get_imus(self.last_time_integrated, t2),
                                       t2, rebase)
             # path window: a superset from the host's anchor-time bound
@@ -247,6 +294,27 @@ class LioPipeline:
         if advanced:
             self.last_time_updated = t2
             self.anchor_t = max(self.anchor_t, t2)
+            if self.last_map_time is None:
+                # the offline cadence starts at the first advance
+                self.last_map_time = t2
+            # dispatch-time history (device refs): controls = first IMU at
+            # or after t2
+            nxt2 = self.accum.get_next_imu(t2)
+            self._anchors_d.append(AnchorRec(
+                t2, out.x,
+                nxt2.a if nxt2 is not None else anchor_a,
+                nxt2.w if nxt2 is not None else anchor_w,
+            ))
+            horizon = t2 - 2 * max(cfg.full_rotation_time, 0.2)
+            self._anchors_d = ([a for a in self._anchors_d if a.t >= horizon]
+                               or self._anchors_d[-1:])
+
+        # offline mode: map every full rotation with the final states
+        if (cfg.mapping_mode == "offline" and self.last_map_time is not None
+                and t2 - self.last_map_time >= cfg.full_rotation_time and self._anchors_d):
+            with self.timers("offline_map"):
+                self._offline_map(t2, rebase)
+            self.last_map_time = t2
 
         # GC: time-based, needs no device values
         self.accum.clear_lidar(t2 - cfg.empty_lidar_time)
@@ -255,10 +323,12 @@ class LioPipeline:
         with self.timers("tele_read"):
             tele = out.telemetry.cpu().numpy()
         with self.timers("resolve_host"):
-            return self._resolve(t2, rebase, advanced, tele, wall0)
+            return self._resolve(t2, rebase, advanced, tele, wall0, out, anchor_a, anchor_w)
 
-    def _resolve(self, t2, rebase, advanced, tele, wall0) -> Optional[StepRecord]:
+    def _resolve(self, t2, rebase, advanced, tele, wall0, out, anchor_a, anchor_w
+                 ) -> Optional[StepRecord]:
         """Host bookkeeping of a finished step from its telemetry."""
+        cfg = self.config
         updated = bool(tele[TEL_UPDATED] > 0.5)
         dev_anchor_t = float(tele[TEL_ANCHOR_T])
         if advanced and not updated:
@@ -271,11 +341,34 @@ class LioPipeline:
             self.anchor_t = max(self.anchor_t, rebase + dev_anchor_t)
         if not updated:
             return None
+        R_h, p_h = np.asarray(tele[TEL_R]).reshape(3, 3), np.asarray(tele[TEL_P])
         self.last_time_updated = max(self.last_time_updated, t2)
+        nxt = self.accum.get_next_imu(t2)
+        self._anchors.append(AnchorRec(
+            t2, out.x,
+            nxt.a if nxt is not None else anchor_a,
+            nxt.w if nxt is not None else anchor_w,
+            R_h, p_h,
+        ))
+        horizon = t2 - 2 * max(cfg.full_rotation_time, 0.2)
+        self._anchors = [a for a in self._anchors if a.t >= horizon] or self._anchors[-1:]
+        if self.last_map_time is None:
+            self.last_map_time = t2
+
+        # map lifecycle: forget buckets beyond map_prune_radius of the pose
+        if cfg.map_prune_radius > 0:
+            if self._last_prune_t is None:
+                self._last_prune_t = t2
+            elif t2 - self._last_prune_t >= cfg.map_prune_every:
+                with self.timers("prune"):
+                    self.map = prune(self.map, self._to_dev(p_h.astype(np.float32)),
+                                     cfg.map_prune_radius, self.grid)
+                self._last_prune_t = t2
+
         rec = StepRecord(
             t=t2,
-            R=np.asarray(tele[TEL_R]).reshape(3, 3),
-            p=np.asarray(tele[TEL_P]),
+            R=R_h,
+            p=p_h,
             v=np.asarray(tele[TEL_V]),
             updated=updated,
             ds_count=int(tele[TEL_DS_COUNT]),
@@ -292,7 +385,41 @@ class LioPipeline:
             delta_norm=float(tele[TEL_DELTA_NORM]),
         )
         self._result.records.append(rec)
+        self._last_gpts_dev = (out.global_pts, out.global_mask)
+        self._on_record(rec)
         return rec
+
+    def _on_record(self, rec: StepRecord) -> None:
+        """Hook: called once per accepted update, while `self.x` and
+        `_last_gpts_dev` still belong to that step (the SLAM layer keyframes
+        here)."""
+
+    @property
+    def _last_gpts(self) -> Optional[np.ndarray]:
+        """The latest accepted window, deskewed, in the world frame at full
+        resolution (host copy)."""
+        if self._last_gpts_dev is None:
+            return None
+        g, msk = self._last_gpts_dev
+        return g[msk].cpu().numpy()
+
+    def _offline_map(self, t2: float, rebase: float) -> None:
+        """Re-deskew (t2 − full_rotation_time, t2] from the oldest kept
+        dispatch-time anchor at or before its start (else the oldest kept)
+        with the final state, and insert the downsampled global cloud."""
+        t_lo = t2 - self.config.full_rotation_time
+        pts_pad, t_pad, mask, n = self._pad_points(t_lo, t2, rebase)
+        if n == 0:
+            return
+        older = [a for a in self._anchors_d if a.t <= t_lo]
+        a_t, a_x, a_a, a_w = (older[-1] if older else self._anchors_d[0])[:4]
+        imus = self._pad_imus_np(*self.accum.get_imus(a_t, t2), t2, rebase)
+        f32 = np.float32
+        self.map = mapping_step(
+            self.map, a_x, self._to_dev(f32(a_t - rebase)), self._to_dev(np.asarray(a_a, f32)),
+            self._to_dev(np.asarray(a_w, f32)), ImuWindow(*(self._to_dev(v) for v in imus)),
+            self.x, self._to_dev(f32(t2 - rebase)), self._to_dev(pts_pad), self._to_dev(t_pad),
+            self._to_dev(mask), self.dyn, self.grid)[0]
 
     def flush(self) -> None:
         """Nothing is in flight: every step resolves when it runs."""

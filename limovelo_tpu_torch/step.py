@@ -4,6 +4,7 @@
     predict to t2  →  deskew (t1, t2]  →  voxel downsample  →
     iterated point-to-plane update  →  map insert (online)
 
+and `mapping_step`, the offline mode's once-per-rotation map update.
 Plain functions over fixed-shape, masked tensors on one device; the map and
 filter state are explicit values threaded through.
 
@@ -87,6 +88,27 @@ TEL_MAP_DROPPED = 40            # cumulative saturation drops (hashgrid.insert)
 TEL_DELTA_NORM = 41
 TEL_ANCHOR_T = 42               # rebased anchor time after this step
 TELEMETRY_DIM = 43
+
+
+def mapping_step(m: HashGridMap, anchor: NavState, anchor_t, anchor_a, anchor_w,
+                 imus_path: ImuWindow, x_t2: NavState, t2, pts, pts_t, pts_mask, dyn,
+                 grid: GridParams):
+    """Offline-mode map update: re-deskew the full last rotation with the
+    final corrected states, downsample, insert globally.  The path is built
+    from the IMU window as given (no strictly-after-anchor mask, unlike
+    `lio_step`): the JAX package's semantics.  Writes the map's tables in
+    place (see `mapping.hashgrid.insert`).
+
+    Returns (map', global full-res points, global mask, global ds points,
+    ds mask, ds idx)."""
+    path = build_path(anchor, anchor_t, anchor_a, anchor_w, imus_path)
+    pts_l2 = compensate(path, anchor, t2, pts, pts_t, pts_mask)
+    R_wl = x_t2.R @ x_t2.R_LI
+    t_wl = x_t2.p + x_t2.R @ x_t2.t_LI
+    g_full = pts_l2 @ R_wl.T + t_wl
+    ds = voxel_downsample(g_full, pts_mask, dyn.downsample_prec)
+    m_new = insert(m, ds.pts, ds.mask, grid, downsample=True)
+    return m_new, g_full, pts_mask, ds.pts, ds.mask, ds.idx
 
 
 def make_telemetry(enough, ds_count, diag: UpdateDiagnostics, x_new: NavState,

@@ -102,3 +102,93 @@ def test_knn_grouped_kernel_contract_adversarial(cuda_device, k, nb, unaligned):
     assert gk.knn_grouped.launches == before + 1
     want = gk.group_topk_plain(bids, oq, ctr, pts, k)
     assert gk.check_topk_contract(oq, bids, pts.shape[1], got, want) > 0
+
+
+def _to(obj, device):
+    """A copy of a NamedTuple of tensors (nested) on `device`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device, copy=True)
+    return type(obj)(*(_to(v, device) for v in obj))
+
+
+@pytest.mark.cuda
+def test_prune_on_card_matches_cpu(cuda_device):
+    """`hashgrid.prune` of one seeded map on the card and on the CPU:
+    bit-equal map fields, and it drops buckets."""
+    rng = np.random.default_rng(1)
+    params = hg.GridParams(table_size=1 << 14)
+    m_cpu, _ = _scan_map(rng, params, "cpu")
+    m_card = _to(m_cpu, cuda_device)
+    center = torch.tensor([150.0, 80.0, 5.0])
+    got = hg.prune(m_card, center.to(cuda_device), 12.0, params)
+    want = hg.prune(m_cpu, center, 12.0, params)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert 0 < int(want.num_buckets) < int(_scan_map(rng, params, "cpu")[0].num_buckets)
+
+
+def _cells(m):
+    """The map's content as {(coarse key, slot): point}."""
+    keys, pts, d2 = (t.cpu().numpy() for t in (m.keys, m.pts, m.cell_d2))
+    b, j = np.nonzero(np.isfinite(d2))
+    return {(*keys[i].tolist(), int(k)): pts[i, k] for i, k in zip(b, j)}
+
+
+@pytest.mark.cuda
+def test_mapping_step_on_card_matches_cpu(cuda_device):
+    """`step.mapping_step` (re-deskew one rotation, downsample, insert) on
+    one seeded input, on the card and on the CPU.  The card rounds the
+    deskew's products in another order (1e-6 relative at 10 m), so a point
+    within that of a 0.2 m voxel face may go to the neighbouring cell: the
+    global clouds agree to 5e-5, and the maps hold the same (key, slot)
+    cells, but for at most one cell in or out per such boundary point, and
+    the counters differ by at most as many; the points of common cells
+    agree to 5e-5.  The points sit on a jittered grid coarser than the
+    voxel leaf, so no medoid is a near-tie between two points.  The mapping
+    step runs no search: the grouped kernel's count stays."""
+    from limovelo_tpu_torch import DEFAULT
+    from limovelo_tpu_torch.config import DynParams
+    from limovelo_tpu_torch.filter.process import ImuWindow
+    from limovelo_tpu_torch.geometry import state as st
+    from limovelo_tpu_torch.step import mapping_step
+
+    rng = np.random.default_rng(2)
+    cfg = DEFAULT.replace(downsample_prec=0.3)
+    params = hg.GridParams(table_size=1 << 14)
+    n_imu, n_pts = 24, 4096
+    t = ((np.arange(n_imu) + 1) * 0.1 / n_imu).astype(np.float32)
+    a = (rng.normal(size=(n_imu, 3)) * 0.1 - np.array(cfg.gravity_vec)).astype(np.float32)
+    w = (rng.normal(size=(n_imu, 3)) * 0.05).astype(np.float32)
+    # a jittered 0.6 m grid: no 0.3 m voxel holds two points, so no medoid
+    # is a near-tie
+    grid = np.stack(np.meshgrid(*[np.arange(16) * 0.6 - 4.5] * 3, indexing="ij"), -1)
+    pts = (grid.reshape(-1, 3) + rng.uniform(-0.1, 0.1, (n_pts, 3))).astype(np.float32)
+    pts_t = rng.uniform(0, 0.1, n_pts).astype(np.float32)
+
+    def run(dev):
+        T = lambda v: torch.as_tensor(v).to(dev)
+        x = st.make_initial(cfg, device=dev)
+        x_t2 = x._replace(p=T(np.float32([0.3, -0.1, 0.02])))
+        m = hg.make_map(params, device=dev)
+        imus = ImuWindow(T(t), T(a), T(w), torch.ones(n_imu, dtype=torch.bool, device=dev))
+        return mapping_step(m, x, T(np.float32(0.0)), T(a[0]), T(w[0]), imus, x_t2,
+                            T(np.float32(0.1)), T(pts), T(pts_t),
+                            torch.ones(n_pts, dtype=torch.bool, device=dev),
+                            DynParams.from_config(cfg), params)
+
+    before = gk.knn_grouped.launches
+    got, want = run(cuda_device), run("cpu")
+    assert gk.knn_grouped.launches == before
+    assert torch.allclose(got[1].cpu(), want[1], rtol=0, atol=5e-5)
+    g = want[3][want[4]].numpy() / params.voxel_size
+    near = int(np.sum(np.any(np.abs(g - np.round(g)) < 5e-4, axis=-1)))
+    assert near < 0.01 * len(g)
+    cg, cw = _cells(got[0]), _cells(want[0])
+    assert len(set(cg) ^ set(cw)) <= 2 * near
+    common = set(cg) & set(cw)
+    assert len(common) > 1000
+    for c in common:
+        np.testing.assert_allclose(cg[c], cw[c], rtol=0, atol=5e-5)
+    for f in ("num_points", "num_buckets", "dropped"):
+        assert abs(int(getattr(got[0], f)) - int(getattr(want[0], f))) <= near, f
+    assert int(want[0].num_points) > 1000

@@ -70,3 +70,35 @@ def test_entry_points_default_to_the_card():
         limovelo_tpu_torch.resolve_device()
     # the CPU only when asked for
     assert LioPipeline(DEFAULT, device="cpu").device.type == "cpu"
+
+
+def test_lifecycle_and_slam_entry_points_default_to_the_card(tmp_path):
+    """The entry points this slice added take `device` too, default "cuda",
+    and raise without a card; the unported `publisher` argument raises,
+    naming the ROADMAP item."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    import numpy as np
+
+    from limovelo_tpu_torch.graph import PoseGraph, optimize_pose_graph, register_scan_to_map
+    from limovelo_tpu_torch.mapping.hashgrid import GridParams
+    from limovelo_tpu_torch.runtime.checkpoint import load_map
+    from limovelo_tpu_torch.runtime.slam import SlamPipeline
+
+    hd = tmp_path / "map.npz"
+    np.savez(hd, points=np.zeros((1, 3), np.float32))
+    g = PoseGraph()
+    g.add_odometry_chain(np.stack([np.eye(3)] * 2), np.zeros((2, 3)))
+    calls = (lambda: SlamPipeline(DEFAULT),
+             lambda: LioPipeline.from_hd_map(DEFAULT, str(hd)),
+             lambda: load_map(str(hd), GridParams()),
+             lambda: register_scan_to_map(np.zeros((4, 3)), np.zeros((4, 3)), np.eye(3),
+                                          np.zeros(3)),
+             lambda: optimize_pose_graph(g, np.stack([np.eye(3)] * 2), np.zeros((2, 3))))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert SlamPipeline(DEFAULT, device="cpu").device.type == "cpu"
+    assert LioPipeline.from_hd_map(DEFAULT, str(hd), device="cpu").config.mapping_mode == "none"
+    with pytest.raises(NotImplementedError, match="item 1"):
+        LioPipeline(DEFAULT, device="cpu", publisher=object())
