@@ -128,15 +128,12 @@ def _none_if_nan(v) -> float | None:
     return None if np.isnan(v) else v
 
 
-def load_checkpoint(path: str, pipe, device=None) -> None:
+def load_checkpoint(path: str, pipe) -> None:
     """Restore, in place, the state that `save_checkpoint` of either package
-    saved.  The tensors go to `device`, which must be the pipeline's own
-    (the default)."""
+    saved, onto the pipeline's device."""
     from .pipeline import AnchorRec
 
-    dev = pipe.device if device is None else resolve_device(device)
-    if dev != pipe.device:
-        raise ValueError(f"load onto the pipeline's device {pipe.device}, not {dev}")
+    dev = pipe.device
     d = np.load(path)
     T = lambda a, dtype=None: torch.as_tensor(np.array(a), dtype=dtype).to(dev)
     nav = lambda prefix: NavState(*(T(d[prefix + f]) for f in _NAV_FIELDS))
@@ -179,8 +176,7 @@ def load_checkpoint(path: str, pipe, device=None) -> None:
         ts = np.asarray(d["anchors_t"])
         pipe._anchors = [
             AnchorRec(float(ts[i]), NavState(*(T(d["anchors_" + f][i]) for f in _NAV_FIELDS)),
-                      np.asarray(d["anchors_a"][i]), np.asarray(d["anchors_w"][i]),
-                      np.asarray(d["anchors_R"][i]), np.asarray(d["anchors_p"][i]))
+                      np.asarray(d["anchors_a"][i]), np.asarray(d["anchors_w"][i]))
             for i in range(len(ts))
         ]
         # the offline re-deskew reads the dispatch-time history: seed it

@@ -89,15 +89,12 @@ class OdometryResult:
 
 class AnchorRec(NamedTuple):
     """One entry of the corrected-state history: the state at an accepted
-    update, the controls that seed a re-deskew path from it, and (for the
-    resolved history) host copies of its pose."""
+    update and the controls that seed a re-deskew path from it."""
 
     t: float
     x: object          # NavState on the device
     a: np.ndarray
     w: np.ndarray
-    R_h: Optional[np.ndarray] = None
-    p_h: Optional[np.ndarray] = None
 
 
 class LioPipeline:
@@ -138,7 +135,7 @@ class LioPipeline:
         # (they differ on collapsed windows): `_anchors_d` is appended at
         # dispatch whenever the raw count clears the threshold and feeds the
         # offline re-deskew; `_anchors` is appended at resolution when the
-        # window updated, carries host pose copies, and is checkpointed
+        # window updated, and is checkpointed
         self._anchors: List[AnchorRec] = []
         self._anchors_d: List[AnchorRec] = []
         self._last_prune_t: Optional[float] = None
@@ -348,7 +345,6 @@ class LioPipeline:
             t2, out.x,
             nxt.a if nxt is not None else anchor_a,
             nxt.w if nxt is not None else anchor_w,
-            R_h, p_h,
         ))
         horizon = t2 - 2 * max(cfg.full_rotation_time, 0.2)
         self._anchors = [a for a in self._anchors if a.t >= horizon] or self._anchors[-1:]
@@ -412,7 +408,7 @@ class LioPipeline:
         if n == 0:
             return
         older = [a for a in self._anchors_d if a.t <= t_lo]
-        a_t, a_x, a_a, a_w = (older[-1] if older else self._anchors_d[0])[:4]
+        a_t, a_x, a_a, a_w = older[-1] if older else self._anchors_d[0]
         imus = self._pad_imus_np(*self.accum.get_imus(a_t, t2), t2, rebase)
         f32 = np.float32
         self.map = mapping_step(

@@ -22,12 +22,14 @@ import torch
 import jax
 
 from limovelo_tpu.config import DEFAULT as J_DEFAULT
+from limovelo_tpu.io.simulate import replay_into as j_replay_into
 from limovelo_tpu.mapping import hashgrid as jhg
 from limovelo_tpu.runtime.checkpoint import load_checkpoint as j_load_checkpoint
 from limovelo_tpu.runtime.checkpoint import save_checkpoint as j_save_checkpoint
 from limovelo_tpu.runtime.pipeline import LioPipeline as JLioPipeline
 from limovelo_tpu_torch import interop
-from limovelo_tpu_torch.io.simulate import circle_trajectory, feed_scans, room_world, simulate
+from limovelo_tpu_torch.io.simulate import (SimScan, circle_trajectory, replay_into,
+                                            room_world, simulate)
 from limovelo_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from limovelo_tpu_torch.runtime.pipeline import LioPipeline
 
@@ -60,19 +62,54 @@ def _after(result, t_cut):
     return result.times[keep], result.positions[keep]
 
 
+class _Calls:
+    """A pipeline stand-in that records what is fed to it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def add_imu(self, t, a, w):
+        self.calls.append(("imu", t))
+
+    def add_scan(self, pts, t, intensity=None):
+        self.calls.append(("scan", len(pts)))
+
+    def spin(self):
+        self.calls.append(("spin",))
+
+
+def test_split_replay_feeds_one_replay():
+    """`replay_into` over scans [0, k) and then [k, n) makes the calls of one
+    replay, which are the JAX package's `replay_into`'s, an empty scan
+    included (a run stopped at a scan boundary to checkpoint goes on as if
+    it never stopped)."""
+    _, tc = _configs("online")
+    _, _, sim = _scene(tc, duration=0.6)
+    s = sim.scans[2]
+    sim.scans[2] = SimScan(pts=s.pts[:0], t=s.t[:0], stamp=s.stamp, intensity=s.intensity[:0])
+    whole, ref = _Calls(), _Calls()
+    replay_into(whole, sim)
+    j_replay_into(ref, sim)
+    assert whole.calls == ref.calls
+    for k in range(len(sim.scans)):
+        split = _Calls()
+        replay_into(split, sim, 0, k)
+        replay_into(split, sim, k)
+        assert split.calls == whole.calls, k
+
+
 @pytest.mark.parametrize("mapping", ["online", "offline"])
 def test_checkpoints_cross_both_ways(tmp_path, mapping):
     jc, tc = _configs(mapping)
     _, _, sim = _scene(tc)
-    n = len(sim.scans)
     t_cut = sim.scans[CUT - 1].t[-1]
 
     # the JAX run, checkpointed at the cut
     jp = JLioPipeline(jc, defer_readback=False)
-    feed_scans(jp, sim, 0, CUT)
+    replay_into(jp, sim, 0, CUT)
     ck_j = str(tmp_path / "jax.npz")
     j_save_checkpoint(ck_j, jp)
-    feed_scans(jp, sim, CUT, n)
+    replay_into(jp, sim, CUT)
     t_ref, p_ref = _after(jp.result, t_cut)
     assert len(t_ref) >= 4
 
@@ -80,14 +117,14 @@ def test_checkpoints_cross_both_ways(tmp_path, mapping):
     tp = LioPipeline(tc, device="cpu")
     load_checkpoint(ck_j, tp)
     assert [a.t for a in tp._anchors] == [a.t for a in tp._anchors_d] != []
-    feed_scans(tp, sim, CUT, n)
+    replay_into(tp, sim, CUT)
     t_got, p_got = _after(tp.result, t_cut)
     np.testing.assert_array_equal(t_got, t_ref)
     assert np.linalg.norm(p_got - p_ref, axis=1).max() < POS_TOL
 
     # port checkpoint → JAX
     tp2 = LioPipeline(tc, device="cpu")
-    feed_scans(tp2, sim, 0, CUT)
+    replay_into(tp2, sim, 0, CUT)
     ck_t = str(tmp_path / "port.npz")
     save_checkpoint(ck_t, tp2)
     with np.load(ck_j) as a, np.load(ck_t) as b:
@@ -96,7 +133,7 @@ def test_checkpoints_cross_both_ways(tmp_path, mapping):
             assert (a[k].dtype, a[k].shape) == (b[k].dtype, b[k].shape), k
     jp2 = JLioPipeline(jc, defer_readback=False)
     j_load_checkpoint(ck_t, jp2)
-    feed_scans(jp2, sim, CUT, n)
+    replay_into(jp2, sim, CUT)
     t_got, p_got = _after(jp2.result, t_cut)
     np.testing.assert_array_equal(t_got, t_ref)
     assert np.linalg.norm(p_got - p_ref, axis=1).max() < POS_TOL
@@ -115,11 +152,11 @@ def test_frozen_hd_map_from_jax(tmp_path):
     jp = JLioPipeline.from_hd_map(jc, str(hd), grid=jhg.GridParams.from_config(jc))
     jp.defer_readback = False
     assert jp.config.mapping_mode == "none"
-    feed_scans(jp, sim, 0, len(sim.scans))
+    replay_into(jp, sim)
     tp = LioPipeline.from_hd_map(tc, str(hd), device="cpu")
     assert tp.config.mapping_mode == "none"
     before = {k: v.clone() for k, v in tp._preloaded_map._asdict().items()}
-    feed_scans(tp, sim, 0, len(sim.scans))
+    replay_into(tp, sim)
 
     jr, tr = jp.result, tp.result
     assert len(tr.records) >= 6
