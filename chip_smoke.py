@@ -46,10 +46,39 @@ Phases, each printing one JSON line with its elapsed seconds:
            1 deg and 1 cm of drift injected per keyframe edge, at least one
            loop closes and the optimized keyframe ATE is below half the
            drifted one
+  kitti    a KITTI raw drive at HDL-64 width (64 lines x 2048 columns at
+           10 Hz, IMU at the KITTI profile's 1000 Hz, 5 s of a 120 m street
+           with pillars at 8 m/s) written by io/fixtures, replayed through
+           the CLI in process (`kitti --config smoke_kitti --save-map`, the
+           KITTI profile with the 1-ring grouped KNN): one TUM line per
+           record, ATE below 0.30 m against the fixture's ground truth and
+           within 1 cm of the ATE against the drive's own OXTS ground truth
+           (io/kitti.oxts_trajectory); the point and ds sizes reached
+  bag      a ROS1 bag of a VLP-16 stream (16 x 1800) with the XALOC profile
+           (400 Hz IMU, real-time windows warming up to 50 Hz, stamp at the
+           end and offsets from the beginning, online extrinsics), 4 s of
+           the room from a standing start, through the CLI (`run --config
+           smoke_xaloc`): updates above 40 Hz of data time after the
+           warm-up, ATE below 0.30 m
+  publish  the main stream through LioPipeline(publisher=Publisher(metrics,
+           trajectory)) with every sink attached: the main phase's records
+           (times, positions within 2 mm), one JSONL row and one TUM line
+           per record, one unit normal per match in each planes packet, the
+           states packet as long as the anchor history, over 99 % of the
+           published intensities input intensities; step p50/p95 beside
+           the main phase's (the difference is the publisher's readbacks)
+  eval     the accuracy battery through the CLI (`eval --fast --device
+           cuda`, build/smoke/EVAL.md): every row has updates and a finite
+           ATE below 0.10 m; each row printed beside EVAL.md's.  Its
+           configurations are the JAX battery's, which use the dense KNN:
+           the phase reports its launches but is exempt from the
+           per-window kernel rule.  It is the only phase that drives the
+           racing envelope and the 100 Hz windows on the card
+  render   the seconds spent rendering each phase's stream
 
 Every phase on the card counts its own kernel launches (set to 0 just
-before it, read just after) and fails if a window launched none; the
-kernels line sums them.  Then the kernels line, nvidia-smi's line and, last,
+before it, read just after) and, but for eval, fails if a window launched
+none; the kernels line sums them.  Files go under build/smoke/.  Then the kernels line, nvidia-smi's line and, last,
 {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result.  It needs one card, builds into
 build/ beside this file, and exits non-zero without a card or without the
@@ -98,6 +127,17 @@ PRUNE_RANGE_M = 40.0         # its sensor range, as in tests/test_mapping.py
 #: phase
 PLATEAU_SHARE = 0.10
 SLAM_S = 9.0                 # the slam phase's run: more than one revolution
+SMOKE_DIR = ROOT / "build" / "smoke"
+#: the kitti phase's drive: the HDL-64 of the KITTI raw drives
+KITTI_SIM = dict(lidar_lines=64, pts_per_line=2048, duration=5.0)
+#: the bag phase's stream: a VLP-16 on the Formula Student car
+BAG_SIM = dict(lidar_lines=16, pts_per_line=1800, duration=4.0)
+FIXTURE_ATE_M = 0.30         # tests/test_fixtures_e2e.py's limit
+OXTS_ATE_TOL_M = 0.01
+BAG_MIN_RATE_HZ = 40.0       # XALOC's 50 Hz windows after the warm-up
+BAG_WARMUP_S = 1.5           # from the first record: past the last warm-up step
+EVAL_ATE_M = 0.10            # tests/test_racing.py's and test_real_eval.py's bound
+GENUINE_SHARE = 0.99
 MIN_MATCH_FRAC = 0.15
 D2_ATOL = 1e-5
 K = 5
@@ -331,32 +371,56 @@ def cast_views(world, sim, fractions):
     return np.concatenate(clouds).astype(np.float32), sim.gt_p[i]
 
 
+class counted_windows:
+    """Every LioPipeline window run inside the block, counted, whichever
+    code built the pipeline (the CLI phases': the CLI): the launch count is
+    set to 0 on entry and read on exit; per window (launches, accepted,
+    seconds, raw points)."""
+
+    def __enter__(self):
+        from limovelo_tpu_torch.ops.cuda import knn
+        from limovelo_tpu_torch.runtime.pipeline import LioPipeline
+
+        self.windows, self._step = [], LioPipeline.step_window
+        step, windows = self._step, self.windows
+
+        def counted(pipe, t1, t2):
+            n = len(pipe.accum.get_points(t1, t2)[0])
+            before, t0 = knn.knn_grouped.launches, time.perf_counter()
+            rec = step(pipe, t1, t2)
+            windows.append((knn.knn_grouped.launches - before, rec is not None,
+                            time.perf_counter() - t0, n))
+            return rec
+
+        LioPipeline.step_window = counted
+        knn.knn_grouped.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        from limovelo_tpu_torch.ops.cuda import knn
+        from limovelo_tpu_torch.runtime.pipeline import LioPipeline
+
+        LioPipeline.step_window = self._step
+        self.launches = knn.knn_grouped.launches
+        return False
+
+    def check_every_window(self, what: str):
+        per_win = np.array([w[0] for w in self.windows])
+        if not self.windows or not np.all(per_win >= 1):
+            raise AssertionError(f"{what}: windows without a kernel launch: "
+                                 f"{int((per_win < 1).sum())}/{len(self.windows)}")
+
+
 def drive(pipe, feed):
-    """Run `feed(pipe)` with every kernel's launch count set to 0 just
-    before and read just after; returns (per window: launches, accepted,
-    seconds; the launches).  On the card, every window must have launched
-    the grouped kernel."""
-    from limovelo_tpu_torch.ops.cuda import knn
-
-    windows = []
-    step = pipe.step_window
-
-    def counted(t1, t2):
-        before, t0 = knn.knn_grouped.launches, time.perf_counter()
-        rec = step(t1, t2)            # ends in the telemetry read: synchronous
-        windows.append((knn.knn_grouped.launches - before, rec is not None,
-                        time.perf_counter() - t0))
-        return rec
-
-    pipe.step_window = counted
-    knn.knn_grouped.launches = 0
-    feed(pipe)
-    launches = knn.knn_grouped.launches
-    per_win = np.array([w[0] for w in windows])
-    if pipe.device.type == "cuda" and (not windows or not np.all(per_win >= 1)):
-        raise AssertionError(f"windows without a kernel launch: {int((per_win < 1).sum())}"
-                             f"/{len(windows)}")
-    return windows, launches
+    """Run `feed(pipe)` with every window counted (`counted_windows`);
+    returns (per window: launches, accepted, seconds, raw points; the
+    launches).  On the card, every window must have launched the grouped
+    kernel."""
+    with counted_windows() as cw:
+        feed(pipe)
+    if pipe.device.type == "cuda":
+        cw.check_every_window(type(pipe).__name__)
+    return cw.windows, cw.launches
 
 
 def window_stats(windows, launches) -> dict:
@@ -697,6 +761,209 @@ def slam_phase():
     return stats
 
 
+def smoke_profiles():
+    """The configurations the CLI phases name, added to the port's
+    PROFILES (the card machine has no PyYAML for a --config file): the
+    KITTI and XALOC profiles with the 1-ring grouped KNN.  The XALOC
+    profile's warm-up has as many deltas as times, which the warm-up
+    schedule rejects in both packages (ROADMAP, "Faults to reproduce, not
+    fix"): the bag phase warms up as DEFAULT does, 10 → 20 → 50 Hz windows
+    at 0.5 s and 1.0 s."""
+    from limovelo_tpu_torch.config import KITTI, PROFILES, XALOC, InitializationParams
+
+    PROFILES["smoke_kitti"] = KITTI.replace(knn_rings=1, knn_backend="grouped")
+    PROFILES["smoke_xaloc"] = XALOC.replace(
+        knn_rings=1, knn_backend="grouped",
+        Initialization=InitializationParams(times=(0.5, 1.0), deltas=(0.1, 0.05, 0.02)))
+    return PROFILES
+
+
+def read_tum(path):
+    d = np.atleast_2d(np.loadtxt(path))
+    return d[:, 0], d[:, 1:4]
+
+
+def kitti_phase():
+    """A KITTI raw drive at HDL-64 width through the `kitti` CLI command."""
+    from limovelo_tpu_torch.__main__ import main as cli
+    from limovelo_tpu_torch.io.fixtures import write_kitti_drive
+    from limovelo_tpu_torch.io.kitti import KittiRawReader, oxts_trajectory
+    from limovelo_tpu_torch.io.simulate import corridor_trajectory, corridor_world
+    from limovelo_tpu_torch.runtime.evaluate import ate_rmse
+
+    t0 = time.perf_counter()
+    cfg = smoke_profiles()["smoke_kitti"]
+    drive_dir = SMOKE_DIR / "2011_09_26_drive_0001_sync"
+    sim = write_kitti_drive(str(drive_dir), corridor_world(length=120.0, width=12.0),
+                            corridor_trajectory(speed=8.0), cfg, seed=5, **KITTI_SIM)
+    sim_s = time.perf_counter() - t0
+    out, map_path = SMOKE_DIR / "kitti.tum", SMOKE_DIR / "kitti_map.npz"
+    ts = time.perf_counter()
+    with counted_windows() as cw:
+        cli(["kitti", "--drive", str(drive_dir), "--config", "smoke_kitti", "--out", str(out),
+             "--save-map", str(map_path), "--device", DEVICE])
+    replay_s = time.perf_counter() - ts
+    cw.check_every_window("kitti")
+    times, pos = read_tum(out)
+    accepted = sum(w[1] for w in cw.windows)
+    ate = ate_rmse(times, pos, sim.gt_t, sim.gt_R, sim.gt_p)[0]
+    ate_oxts = ate_rmse(times, pos, *oxts_trajectory(KittiRawReader(str(drive_dir))))[0]
+    raw = np.array([w[3] for w in cw.windows])
+    stats = dict(**window_stats(cw.windows, cw.launches), records=len(times), ate_m=ate,
+                 ate_oxts_m=ate_oxts, rays_per_scan=KITTI_SIM["lidar_lines"]
+                 * KITTI_SIM["pts_per_line"],
+                 returns_per_scan=float(np.mean([len(s.pts) for s in sim.scans])),
+                 max_window_points=int(raw.max()),
+                 point_bucket=cfg.bucket_for(int(raw.max()), cfg.point_buckets),
+                 windows_over_largest_bucket=int((raw > cfg.point_buckets[-1]).sum()),
+                 map_npz_bytes=map_path.stat().st_size, sim_s=sim_s, replay_s=replay_s,
+                 seconds=time.perf_counter() - t0)
+    phase("kitti", **stats)
+    if len(times) != accepted or accepted == 0:
+        raise AssertionError(f"kitti: {len(times)} TUM lines for {accepted} records")
+    if not ate < FIXTURE_ATE_M:
+        raise AssertionError(f"kitti: ATE {ate} m >= {FIXTURE_ATE_M} m")
+    if abs(ate_oxts - ate) >= OXTS_ATE_TOL_M:
+        raise AssertionError(f"kitti: ATE against OXTS {ate_oxts} m, against the fixture {ate} m")
+    return stats
+
+
+def bag_phase():
+    """A VLP-16 ROS1 bag with the XALOC profile through the `run` command."""
+    from limovelo_tpu_torch.__main__ import main as cli
+    from limovelo_tpu_torch.io.fixtures import write_rosbag
+    from limovelo_tpu_torch.io.simulate import circle_trajectory, room_world, simulate
+    from limovelo_tpu_torch.runtime.evaluate import ate_rmse
+
+    t0 = time.perf_counter()
+    cfg = smoke_profiles()["smoke_xaloc"]
+    sim = simulate(room_world(size=24, n_boxes=10),
+                   circle_trajectory(radius=4, omega=0.5, ramp=1.0, hold=0.5), cfg,
+                   imu_rate=cfg.imu_rate, **BAG_SIM)
+    bag = SMOKE_DIR / "xaloc.bag"
+    write_rosbag(str(bag), sim, cfg)
+    sim_s = time.perf_counter() - t0
+    out = SMOKE_DIR / "xaloc.tum"
+    ts = time.perf_counter()
+    with counted_windows() as cw:
+        cli(["run", "--bag", str(bag), "--config", "smoke_xaloc", "--out", str(out),
+             "--device", DEVICE])
+    replay_s = time.perf_counter() - ts
+    cw.check_every_window("bag")
+    times, pos = read_tum(out)
+    ate = ate_rmse(times, pos, sim.gt_t, sim.gt_R, sim.gt_p)[0]
+    late = times[times >= times[0] + BAG_WARMUP_S]
+    rate = (len(late) - 1) / (late[-1] - late[0]) if len(late) > 1 else 0.0
+    stats = dict(**window_stats(cw.windows, cw.launches), records=len(times), ate_m=ate,
+                 update_hz_after_warmup=rate, bag_bytes=bag.stat().st_size, sim_s=sim_s,
+                 replay_s=replay_s, seconds=time.perf_counter() - t0)
+    phase("bag", **stats)
+    if not rate > BAG_MIN_RATE_HZ:
+        raise AssertionError(f"bag: {rate} Hz of updates after the warm-up")
+    if not ate < FIXTURE_ATE_M:
+        raise AssertionError(f"bag: ATE {ate} m >= {FIXTURE_ATE_M} m")
+    return stats
+
+
+def publish_phase(sim, res_main, main_stats):
+    """The main stream with every publisher sink attached."""
+    from limovelo_tpu_torch.runtime.pipeline import LioPipeline
+    from limovelo_tpu_torch.runtime.publishers import Publisher
+
+    t0 = time.perf_counter()
+    metrics, traj = SMOKE_DIR / "publish.jsonl", SMOKE_DIR / "publish.tum"
+    pub = Publisher(str(metrics), str(traj))
+    log = {k: [] for k in ("state", "tf", "cloud", "full_cloud", "planes", "states",
+                           "extrinsics")}
+    pipe = LioPipeline(main_config().replace(print_extrinsics=True), device=DEVICE,
+                       publisher=pub)
+    short_states = []
+
+    def on_states(pkt):
+        log["states"].append(len(pkt.times))
+        if len(pkt.times) != len(pipe._anchors):
+            short_states.append((pkt.t, len(pkt.times), len(pipe._anchors)))
+
+    pub.on_state.append(log["state"].append)
+    pub.on_tf.append(log["tf"].append)
+    pub.on_cloud.append(lambda pts, t, intensity: log["cloud"].append((len(pts), intensity)))
+    pub.on_full_cloud.append(lambda pts, t, intensity:
+                             log["full_cloud"].append((len(pts), intensity)))
+    pub.on_planes.append(log["planes"].append)
+    pub.on_states.append(on_states)
+    pub.on_extrinsics.append(log["extrinsics"].append)
+    windows, launches = drive(pipe, whole(sim))
+    pub.close()
+    res, ate = checked_result(pipe, windows, sim)
+    same_times = np.array_equal(res.times, res_main.times)
+    d = (np.linalg.norm(res.positions - res_main.positions, axis=1) if same_times
+         else np.array([np.inf]))
+    all_in = np.round(np.concatenate([s.intensity for s in sim.scans]), 5)
+    genuine = {k: float(np.isin(np.round(np.concatenate([c[1] for c in log[k]]), 5),
+                                all_in).mean()) for k in ("cloud", "full_cloud")}
+    bad_planes = [i for i, (rec, pk) in enumerate(zip(res.records, log["planes"]))
+                  if len(pk.normals) != rec.num_matches
+                  or not np.allclose(np.linalg.norm(pk.normals, axis=-1), 1.0, atol=1e-4)]
+    n_jsonl = len(metrics.read_text().splitlines())
+    n_tum = len(traj.read_text().splitlines())
+    stats = dict(**window_stats(windows, launches), records=len(res.records), ate_m=ate,
+                 same_record_times=same_times, max_pos_diff_m=float(d.max()),
+                 packets={k: len(v) for k, v in log.items()}, jsonl_rows=n_jsonl, tum_lines=n_tum,
+                 mean_cloud_points=float(np.mean([c[0] for c in log["cloud"]])),
+                 mean_full_cloud_points=float(np.mean([c[0] for c in log["full_cloud"]])),
+                 genuine_intensity=genuine, main_step_p50_ms=main_stats["step_p50_ms"],
+                 main_step_p95_ms=main_stats["step_p95_ms"], seconds=time.perf_counter() - t0)
+    phase("publish", **stats)
+    if not same_times or d.max() >= RESUME_TOL_M:
+        raise AssertionError(f"publish: records differ from the main run's by {d.max()} m")
+    n = len(res.records)
+    if n_jsonl != n or n_tum != n or any(len(v) != n for v in log.values()):
+        raise AssertionError(f"publish: {n} records, {n_jsonl} JSONL rows, {n_tum} TUM lines, "
+                             f"packets {stats['packets']}")
+    if bad_planes:
+        raise AssertionError(f"publish: planes packets of records {bad_planes[:5]} are not one "
+                             "unit normal per match")
+    if short_states:
+        raise AssertionError(f"publish: states packets not the anchor history: {short_states[:3]}")
+    if min(genuine.values()) <= GENUINE_SHARE:
+        raise AssertionError(f"publish: published intensities are not the input's: {genuine}")
+    return stats
+
+
+def eval_rows_md(path: Path) -> dict:
+    """EVAL.md's table: scenario → (ATE, updates, update rate)."""
+    rows = {}
+    for ln in path.read_text().splitlines() if path.is_file() else []:
+        cells = [c.strip() for c in ln.strip().strip("|").split("|")]
+        if ln.startswith("| ") and len(cells) >= 4 and cells[0] != "scenario":
+            try:
+                rows[cells[0]] = (float(cells[1]), int(cells[2]), float(cells[3]))
+            except ValueError:
+                continue
+    return rows
+
+
+def eval_phase():
+    """The accuracy battery on the card through the `eval` command."""
+    from limovelo_tpu_torch.__main__ import main as cli
+
+    t0 = time.perf_counter()
+    out = SMOKE_DIR / "EVAL.md"
+    with counted_windows() as cw:
+        rows = cli(["eval", "--fast", "--out", str(out), "--device", DEVICE])
+    ref = eval_rows_md(ROOT / "EVAL.md")
+    table = [dict(scenario=r.scenario, ate_m=r.ate_m, updates=r.updates, update_hz=r.update_hz,
+                  wall_s=r.wall_s, eval_md=ref.get(r.scenario)) for r in rows]
+    stats = dict(**window_stats(cw.windows, cw.launches), rows=table,
+                 seconds=time.perf_counter() - t0)
+    phase("eval", **stats)
+    bad = [r.scenario for r in rows
+           if not (r.updates > 0 and np.isfinite(r.ate_m) and r.ate_m < EVAL_ATE_M)]
+    if len(rows) != 9 or bad:
+        raise AssertionError(f"eval: {len(rows)} rows; failed: {bad}")
+    return stats
+
+
 def profile_phase(sim, n_windows: int = 20):
     """torch.profiler over `n_windows` main-path windows after a warm-up:
     device busy time against wall time, and the ops by host and device
@@ -766,9 +1033,12 @@ def main() -> int:
         profile_phase(make_sim()[1])
         return 0
 
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
     world, sim = make_sim()
+    render_s = {"main": time.perf_counter() - t}
     phase("sim", scans=len(sim.scans), returns_per_scan=float(np.mean([len(s.pts) for s in sim.scans])),
-          imu_samples=len(sim.imu_t))
+          imu_samples=len(sim.imu_t), seconds=render_s["main"])
 
     cases, max_err = kernel_phase(*kernel_views(world, sim))
     phase("kernel", kernel="knn_grouped", max_abs_d2_err=max_err, cases=cases)
@@ -784,7 +1054,17 @@ def main() -> int:
     prune_stats = prune_phase()
     phase_launches["prune"] = (prune_stats["kernel_launches"]
                                + prune_stats["unpruned"]["kernel_launches"])
-    phase_launches["slam"] = slam_phase()["kernel_launches"]
+    slam_stats = slam_phase()
+    phase_launches["slam"] = slam_stats["kernel_launches"]
+    render_s.update(prune=prune_stats["sim_s"], slam=slam_stats["sim_s"])
+    for name, run in (("kitti", kitti_phase), ("bag", bag_phase)):
+        st = run()
+        phase_launches[name] = st["kernel_launches"]
+        render_s[name] = st["sim_s"]
+    phase_launches["publish"] = publish_phase(sim, res, stats)["kernel_launches"]
+    phase_launches["eval"] = eval_phase()["kernel_launches"]
+    phase("render", seconds=render_s, main_prune_slam_s=sum(
+        render_s[k] for k in ("main", "prune", "slam")), launches_by_phase=phase_launches)
 
     main_case = next(c for c in cases if c["n"] == 8192 and c["rings"] == 1)
     emit({"kernels": [{

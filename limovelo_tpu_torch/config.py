@@ -25,6 +25,9 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 
+#: the JAX package's `knn_backend` names → the port's
+_JAX_BACKENDS = {"xla": "dense", "pallas": "grouped"}
+
 
 def _ident9() -> Tuple[float, ...]:
     return (1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
@@ -375,6 +378,9 @@ class Config:
         for src, dst in alias.items():
             if src in d and dst not in d:
                 d[dst] = d.pop(src)
+        # the JAX package's KNN backend names (its YAML files carry them)
+        if d.get("knn_backend") in _JAX_BACKENDS:
+            d["knn_backend"] = _JAX_BACKENDS[d["knn_backend"]]
         init = d.pop("Initialization", None)
         kw = {}
         fields = {f.name for f in dataclasses.fields(cls)}
@@ -508,3 +514,14 @@ DEFAULT = Config(
     PLANES_THRESHOLD=5e-2,
     Initialization=InitializationParams(times=(0.5, 1.0), deltas=(0.1, 0.05, 0.02)),
 )
+
+#: name → profile lookup for the CLI (`--config kitti|xaloc|ouster|default`);
+#: any other value is read as a YAML path (`Config.from_yaml`).  A caller may
+#: add entries (chip_smoke.py does, to hand the CLI a configuration on a
+#: machine without PyYAML).
+PROFILES = {
+    "kitti": KITTI,
+    "xaloc": XALOC,
+    "ouster": OUSTER,
+    "default": DEFAULT,
+}

@@ -13,12 +13,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .config import Config, InitializationParams
+from .config import _JAX_BACKENDS, Config, InitializationParams
 from .geometry.state import NavState
 from .mapping.hashgrid import HashGridMap
-
-#: the JAX package's knn_backend names → the port's
-_BACKENDS = {"xla": "dense", "pallas": "grouped"}
 
 _MAP_FIELDS = ("keys", "pts", "cell_d2", "num_points", "num_buckets", "dropped")
 
@@ -48,7 +45,7 @@ def config_from_kwargs(kwargs: Mapping[str, object]) -> Config:
     object with `times`/`deltas`, or a dict)."""
     kw = dict(kwargs)
     if "knn_backend" in kw:
-        kw["knn_backend"] = _BACKENDS.get(kw["knn_backend"], kw["knn_backend"])
+        kw["knn_backend"] = _JAX_BACKENDS.get(kw["knn_backend"], kw["knn_backend"])
     init = kw.get("Initialization")
     if init is not None and not isinstance(init, InitializationParams):
         get = init.get if isinstance(init, Mapping) else lambda k: getattr(init, k)

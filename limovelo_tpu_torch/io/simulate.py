@@ -317,7 +317,6 @@ def simulate(
             az = np.asarray(azimuths, np.float64)
         cols = len(az)
         col_t = t0 + (np.arange(cols) / cols) * rot_time
-        # per-column sensor pose (body pose ∘ extrinsics)
         dirs_l = np.stack(
             [
                 np.cos(elev)[None, :] * np.cos(az)[:, None],
@@ -326,30 +325,32 @@ def simulate(
             ],
             axis=-1,
         )  # (cols, lines, 3) in LiDAR frame
-        pts_list, t_list, i_list = [], [], []
+        # per-column sensor pose (body pose ∘ extrinsics), evaluated in LOCAL
+        # time: epoch-scale arguments (KITTI fixtures stamp at ~1.3e9 s)
+        # destroy the finite-difference IMU derivatives (f64 position
+        # quantization at |p|~5e9 m amplifies to ~100 m/s² of acc noise
+        # through /eps²)
+        R_wl = np.empty((cols, 3, 3))
+        p_wl = np.empty((cols, 3))
         for ci in range(cols):
-            # evaluate the trajectory in LOCAL time: epoch-scale arguments
-            # (KITTI fixtures stamp at ~1.3e9 s) destroy the finite-
-            # difference IMU derivatives (f64 position quantization at
-            # |p|~5e9 m amplifies to ~100 m/s² of acc noise through /eps²)
             R_b, p_b = traj.pose(col_t[ci] - t_start)
-            R_wl = R_b @ R_LI
-            p_wl = R_b @ t_LI + p_b
-            d_w = dirs_l[ci] @ R_wl.T
-            ranges = world_cast(np.tile(p_wl, (lidar_lines, 1)), d_w)
-            ok = np.isfinite(ranges) & (ranges < max_range)
-            r = ranges[ok] + rng.normal(size=ok.sum()) * range_noise
-            pts_list.append((dirs_l[ci][ok] * r[:, None]).astype(np.float32))
-            t_list.append(np.full(ok.sum(), col_t[ci]))
-            # deterministic per-return intensity (1/r² falloff, arbitrary
-            # albedo scale) — exercises the intensity channel end to end
-            i_list.append((100.0 / np.maximum(r, 1.0) ** 2).astype(np.float32))
+            R_wl[ci] = R_b @ R_LI
+            p_wl[ci] = R_b @ t_LI + p_b
+        # the whole scan's rays in one cast, in (column, line) order; the
+        # range noise is one draw over the kept returns in that order, which
+        # gives the values of one draw per column
+        d_w = np.matmul(dirs_l, R_wl.transpose(0, 2, 1)).reshape(-1, 3)
+        ranges = world_cast(np.repeat(p_wl, lidar_lines, axis=0), d_w)
+        ok = np.isfinite(ranges) & (ranges < max_range)
+        r = ranges[ok] + rng.normal(size=int(ok.sum())) * range_noise
+        # deterministic per-return intensity (1/r² falloff, arbitrary
+        # albedo scale) — exercises the intensity channel end to end
         scans.append(
             SimScan(
-                pts=np.concatenate(pts_list, axis=0),
-                t=np.concatenate(t_list, axis=0),
+                pts=(dirs_l.reshape(-1, 3)[ok] * r[:, None]).astype(np.float32),
+                t=np.repeat(col_t, ok.reshape(cols, lidar_lines).sum(axis=1)),
                 stamp=t0,
-                intensity=np.concatenate(i_list, axis=0),
+                intensity=(100.0 / np.maximum(r, 1.0) ** 2).astype(np.float32),
             )
         )
 
@@ -376,31 +377,41 @@ def simulate(
     )
 
 
-def replay_into(pipe, sim: SimData, lo: int = 0, hi: Optional[int] = None) -> None:
+def replay_into(pipe, sim: SimData, lo: int = 0, hi: Optional[int] = None,
+                spin_every_imu: bool = False) -> None:
     """Stream scans [lo, hi) of sim data into a pipeline in time order (like
     a live rosbag): each scan after the IMU samples up to its last point,
     then a spin; the remaining IMU samples only with the stream's last scan.
     Feeding everything up-front would put `initial_time` at the stream's end
     (readiness fires on buffer size — Accumulator.cpp:154-156).  Feeding
     [0, k) and then [k, n) makes the same calls as one replay, so a run can
-    stop at a scan boundary (to checkpoint) and go on."""
+    stop at a scan boundary (to checkpoint) and go on.
+
+    `spin_every_imu` also spins after each IMU sample, as a live main loop
+    does: with `real_time` windows each sample can open a new window."""
     scans = sim.scans
     hi = len(scans) if hi is None else hi
     end = lambda scan: scan.t[-1] if len(scan.t) else scan.stamp
     m = len(sim.imu_t)
+
+    def feed_imu(i):
+        pipe.add_imu(sim.imu_t[i], sim.imu_a[i], sim.imu_w[i])
+        if spin_every_imu:
+            pipe.spin()
+
     # skip the IMU samples that the scans before `lo` took (imu_t is sorted)
     ii = 0
     if lo:
         ii = int(np.searchsorted(sim.imu_t, max(end(s) for s in scans[:lo]), side="right"))
     for scan in scans[lo:hi]:
         while ii < m and sim.imu_t[ii] <= end(scan):
-            pipe.add_imu(sim.imu_t[ii], sim.imu_a[ii], sim.imu_w[ii])
+            feed_imu(ii)
             ii += 1
         pipe.add_scan(scan.pts, scan.t, intensity=scan.intensity)
         pipe.spin()
     if hi < len(scans):
         return
     while ii < m:
-        pipe.add_imu(sim.imu_t[ii], sim.imu_a[ii], sim.imu_w[ii])
+        feed_imu(ii)
         ii += 1
     pipe.spin()

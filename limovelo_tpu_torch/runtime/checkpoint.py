@@ -176,11 +176,13 @@ def load_checkpoint(path: str, pipe) -> None:
         ts = np.asarray(d["anchors_t"])
         pipe._anchors = [
             AnchorRec(float(ts[i]), NavState(*(T(d["anchors_" + f][i]) for f in _NAV_FIELDS)),
-                      np.asarray(d["anchors_a"][i]), np.asarray(d["anchors_w"][i]))
+                      np.asarray(d["anchors_a"][i]), np.asarray(d["anchors_w"][i]),
+                      np.asarray(d["anchors_R"][i]), np.asarray(d["anchors_p"][i]))
             for i in range(len(ts))
         ]
-        # the offline re-deskew reads the dispatch-time history: seed it
-        # from the restored one, as the JAX package does
+        # the host pose copies (the states publisher reads them) come from
+        # the saved poses; the offline re-deskew reads the dispatch-time
+        # history: seed it from the restored one, as the JAX package does
         pipe._anchors_d = list(pipe._anchors)
 
     acc = pipe.accum

@@ -1,6 +1,7 @@
-"""Trajectory evaluation: ATE against ground truth (the part of
-`limovelo_tpu/runtime/evaluate.py` the port uses, copied: the port must not
-import the JAX package)."""
+"""Trajectory evaluation and writers (a copy of
+`limovelo_tpu/runtime/evaluate.py`, which the port must not import): ATE
+against ground truth, and TUM- and KITTI-format trajectory files for
+evo-style external tooling."""
 
 from __future__ import annotations
 
@@ -51,3 +52,22 @@ def ate_rmse(
         est_p = (s * (R @ est_p.T)).T + t
     err = np.linalg.norm(est_p - gt_pi, axis=-1)
     return float(np.sqrt((err ** 2).mean())), err
+
+
+def write_tum(path: str, times, Rs, ps):
+    """TUM format: `t x y z qx qy qz qw` per line."""
+    with open(path, "w") as f:
+        for t, R, p in zip(times, Rs, ps):
+            q = Rsc.from_matrix(R).as_quat()  # (x,y,z,w)
+            f.write(
+                f"{t:.9f} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} "
+                f"{q[0]:.9f} {q[1]:.9f} {q[2]:.9f} {q[3]:.9f}\n"
+            )
+
+
+def write_kitti(path: str, Rs, ps):
+    """KITTI odometry format: row-major 3×4 pose per line."""
+    with open(path, "w") as f:
+        for R, p in zip(Rs, ps):
+            T = np.hstack([R, p[:, None]])
+            f.write(" ".join(f"{v:.9e}" for v in T.ravel()) + "\n")

@@ -19,6 +19,11 @@ window; "offline" re-deskews the last full rotation with the final states
 once per `full_rotation_time` and inserts that; "none" never inserts (a
 frozen map, `from_hd_map`).  With `map_prune_radius > 0` the map forgets
 buckets beyond that radius of the pose every `map_prune_every` seconds.
+
+A `publisher` (`runtime.publishers.Publisher`) receives each accepted
+update's state, TF and extrinsics, and the window cloud, map stream, planes
+and state history when a sink for them is attached; each of those is read
+from the device only then.
 """
 
 from __future__ import annotations
@@ -89,12 +94,17 @@ class OdometryResult:
 
 class AnchorRec(NamedTuple):
     """One entry of the corrected-state history: the state at an accepted
-    update and the controls that seed a re-deskew path from it."""
+    update and the controls that seed a re-deskew path from it.  `R_h`/`p_h`
+    are host copies of the pose (from the telemetry), so publishing the state
+    history reads nothing from the device; the dispatch-time history, which
+    no telemetry has reached yet, leaves them None."""
 
     t: float
     x: object          # NavState on the device
     a: np.ndarray
     w: np.ndarray
+    R_h: Optional[np.ndarray] = None
+    p_h: Optional[np.ndarray] = None
 
 
 class LioPipeline:
@@ -104,9 +114,8 @@ class LioPipeline:
 
     def __init__(self, config, device="cuda", grid: Optional[GridParams] = None,
                  publisher=None):
-        if publisher is not None:
-            raise NotImplementedError("publishers: " + _NOT_PORTED.format(1))
         self.config = config
+        self.publisher = publisher
         self.device = resolve_device(device)
         self.grid = grid or GridParams.from_config(config)
         self.accum = Accumulator(config)
@@ -139,7 +148,13 @@ class LioPipeline:
         self._anchors: List[AnchorRec] = []
         self._anchors_d: List[AnchorRec] = []
         self._last_prune_t: Optional[float] = None
+        # the latest accepted window on the device (full resolution and
+        # downsampled, with the medoids' window indices) and its intensity
+        # on the host; read back only by the properties below
         self._last_gpts_dev = None
+        self._last_gds_dev = None
+        self._last_gds_idx_dev = None
+        self._last_win_int: Optional[np.ndarray] = None
         self.stream_dead = False
         self._last_processed_t2: float = -np.inf
         # windows whose raw count cleared MAX_POINTS2MATCH but whose voxel
@@ -149,7 +164,7 @@ class LioPipeline:
 
     @classmethod
     def from_hd_map(cls, config, map_path: str, device="cuda",
-                    grid: Optional[GridParams] = None) -> "LioPipeline":
+                    grid: Optional[GridParams] = None, publisher=None) -> "LioPipeline":
         """Localize against a prebuilt HD map (saved by `checkpoint.save_map`
         of either package).  Unless the config sets `mapping`, the map is
         frozen (mode "none"): nothing is inserted and the map stays
@@ -158,7 +173,7 @@ class LioPipeline:
 
         if config.mapping is None:
             config = config.replace(mapping="none")
-        pipe = cls(config, device=device, grid=grid)
+        pipe = cls(config, device=device, grid=grid, publisher=publisher)
         pipe._preloaded_map = load_map(map_path, pipe.grid, device=pipe.device)
         return pipe
 
@@ -223,21 +238,24 @@ class LioPipeline:
 
     def _pad_points(self, t1: float, t2: float, rebase: float):
         """Points with t in (t1, t2], padded to their shape bucket (the
-        newest kept when the window overfills it): (pts, rebased t, mask, n)."""
+        newest kept when the window overfills it): (pts, rebased t, mask,
+        intensity, n)."""
         cfg = self.config
-        pts, pts_t, _ = self.accum.get_points(t1, t2)
+        pts, pts_t, pts_i = self.accum.get_points(t1, t2)
         n = len(pts)
         bucket = cfg.bucket_for(max(n, 1), cfg.point_buckets)
         if n > bucket:
-            pts, pts_t = pts[-bucket:], pts_t[-bucket:]
+            pts, pts_t, pts_i = pts[-bucket:], pts_t[-bucket:], pts_i[-bucket:]
             n = bucket
         pts_pad = np.zeros((bucket, 3), np.float32)
         t_pad = np.zeros(bucket, np.float32)
         mask = np.zeros(bucket, bool)
+        int_pad = np.zeros(bucket, np.float32)
         pts_pad[:n] = pts
         t_pad[:n] = (pts_t - rebase).astype(np.float32)
         mask[:n] = True
-        return pts_pad, t_pad, mask, n
+        int_pad[:n] = pts_i
+        return pts_pad, t_pad, mask, int_pad, n
 
     # ------------------------------------------------------------------
     def step_window(self, t1: float, t2: float) -> Optional[StepRecord]:
@@ -248,7 +266,7 @@ class LioPipeline:
         rebase = self.accum.initial_time
 
         with self.timers("assemble"):
-            pts_pad, t_pad, mask, n = self._pad_points(t1, t2, rebase)
+            pts_pad, t_pad, mask, win_int, n = self._pad_points(t1, t2, rebase)
             imu_f = self._pad_imus_np(*self.accum.get_imus(self.last_time_integrated, t2),
                                       t2, rebase)
             # path window: a superset from the host's anchor-time bound
@@ -320,9 +338,10 @@ class LioPipeline:
         with self.timers("tele_read"):
             tele = out.telemetry.cpu().numpy()
         with self.timers("resolve_host"):
-            return self._resolve(t2, rebase, advanced, tele, wall0, out, anchor_a, anchor_w)
+            return self._resolve(t2, rebase, advanced, tele, wall0, out, anchor_a, anchor_w,
+                                 win_int)
 
-    def _resolve(self, t2, rebase, advanced, tele, wall0, out, anchor_a, anchor_w
+    def _resolve(self, t2, rebase, advanced, tele, wall0, out, anchor_a, anchor_w, win_int
                  ) -> Optional[StepRecord]:
         """Host bookkeeping of a finished step from its telemetry."""
         cfg = self.config
@@ -345,6 +364,7 @@ class LioPipeline:
             t2, out.x,
             nxt.a if nxt is not None else anchor_a,
             nxt.w if nxt is not None else anchor_w,
+            R_h, p_h,
         ))
         horizon = t2 - 2 * max(cfg.full_rotation_time, 0.2)
         self._anchors = [a for a in self._anchors if a.t >= horizon] or self._anchors[-1:]
@@ -382,13 +402,45 @@ class LioPipeline:
         )
         self._result.records.append(rec)
         self._last_gpts_dev = (out.global_pts, out.global_mask)
+        self._last_gds_dev = (out.global_ds, out.global_ds_mask)
+        self._last_gds_idx_dev = out.global_ds_idx
+        self._last_win_int = win_int
+        if self.publisher is not None:
+            self._publish(rec, out)
         self._on_record(rec)
         return rec
 
+    def _publish(self, rec: StepRecord, out) -> None:
+        """Hand one accepted update to the publisher (main.cpp:87-105): state
+        and TF, extrinsics, the window cloud (the downsampled localization
+        cloud, /limovelo/pcl), the online map stream (/limovelo/full_pcl:
+        full resolution when `high_quality_publish`), the chosen matches'
+        planes and the state history.  A cloud, the planes and the history
+        are read only when a sink for them is attached."""
+        cfg, pub = self.config, self.publisher
+        pub.state(rec)
+        if cfg.print_extrinsics:
+            pub.extrinsics(rec)
+        if getattr(pub, "on_cloud", None):
+            g, inten = self._last_gds_i
+            pub.cloud(g, rec.t, intensity=inten)
+        if cfg.mapping_mode == "online" and getattr(pub, "on_full_cloud", None):
+            g, inten = self._last_gpts_i if cfg.high_quality_publish else self._last_gds_i
+            pub.full_cloud(g, rec.t, intensity=inten)
+        if getattr(pub, "wants_planes", False):
+            d = out.diag
+            cen, nrm, pv = (v.cpu().numpy() for v in
+                            (d.plane_centroids, d.plane_normals, d.plane_valid))
+            pub.planes(cen[pv], nrm[pv], rec.t)
+        if getattr(pub, "on_states", None):
+            ts = np.array([a.t for a in self._anchors])
+            pub.states(ts, np.stack([a.p_h for a in self._anchors]),
+                       np.stack([a.R_h for a in self._anchors]), rec.t)
+
     def _on_record(self, rec: StepRecord) -> None:
-        """Hook: called once per accepted update, while `self.x` and
-        `_last_gpts_dev` still belong to that step (the SLAM layer keyframes
-        here)."""
+        """Hook: called once per accepted update, after publishing, while
+        `self.x` and `_last_gpts_dev` still belong to that step (the SLAM
+        layer keyframes here)."""
 
     @property
     def _last_gpts(self) -> Optional[np.ndarray]:
@@ -399,23 +451,62 @@ class LioPipeline:
         g, msk = self._last_gpts_dev
         return g[msk].cpu().numpy()
 
+    @property
+    def _last_gds(self) -> Optional[np.ndarray]:
+        """The latest accepted window, downsampled, in the world frame (host
+        copy)."""
+        if self._last_gds_dev is None:
+            return None
+        g, msk = self._last_gds_dev
+        return g[msk].cpu().numpy()
+
+    @property
+    def _last_gpts_i(self):
+        """(full-resolution window, per-point intensity): the full cloud
+        keeps the window's order, so the intensity aligns by the mask."""
+        if self._last_gpts_dev is None:
+            return None, None
+        g, msk = (v.cpu().numpy() for v in self._last_gpts_dev)
+        return g[msk], self._last_win_int[msk]
+
+    @property
+    def _last_gds_i(self):
+        """(downsampled window, per-point intensity): the intensity is
+        gathered through the medoids' window indices (ops/voxel
+        `Downsampled.idx`)."""
+        if self._last_gds_dev is None:
+            return None, None
+        g, msk, idx = (v.cpu().numpy() for v in (*self._last_gds_dev, self._last_gds_idx_dev))
+        return g[msk], self._last_win_int[idx[msk]]
+
     def _offline_map(self, t2: float, rebase: float) -> None:
         """Re-deskew (t2 − full_rotation_time, t2] from the oldest kept
         dispatch-time anchor at or before its start (else the oldest kept)
-        with the final state, and insert the downsampled global cloud."""
-        t_lo = t2 - self.config.full_rotation_time
-        pts_pad, t_pad, mask, n = self._pad_points(t_lo, t2, rebase)
+        with the final state, insert the downsampled global cloud, and
+        publish it as the map stream (main.cpp:107-117: at full resolution
+        when `high_quality_publish`) when a sink is attached."""
+        cfg = self.config
+        t_lo = t2 - cfg.full_rotation_time
+        pts_pad, t_pad, mask, int_pad, n = self._pad_points(t_lo, t2, rebase)
         if n == 0:
             return
         older = [a for a in self._anchors_d if a.t <= t_lo]
-        a_t, a_x, a_a, a_w = older[-1] if older else self._anchors_d[0]
+        a_t, a_x, a_a, a_w = (older[-1] if older else self._anchors_d[0])[:4]
         imus = self._pad_imus_np(*self.accum.get_imus(a_t, t2), t2, rebase)
         f32 = np.float32
-        self.map = mapping_step(
+        self.map, g_full, g_mask, g_ds, ds_mask, ds_idx = mapping_step(
             self.map, a_x, self._to_dev(f32(a_t - rebase)), self._to_dev(np.asarray(a_a, f32)),
             self._to_dev(np.asarray(a_w, f32)), ImuWindow(*(self._to_dev(v) for v in imus)),
             self.x, self._to_dev(f32(t2 - rebase)), self._to_dev(pts_pad), self._to_dev(t_pad),
-            self._to_dev(mask), self.dyn, self.grid)[0]
+            self._to_dev(mask), self.dyn, self.grid)
+        if self.publisher is not None and getattr(self.publisher, "on_full_cloud", None):
+            if cfg.high_quality_publish:
+                g, msk = (v.cpu().numpy() for v in (g_full, g_mask))
+                inten = int_pad[msk]
+            else:
+                g, msk, idx = (v.cpu().numpy() for v in (g_ds, ds_mask, ds_idx))
+                inten = int_pad[idx[msk]]
+            self.publisher.full_cloud(g[msk], t2, intensity=inten)
 
     def flush(self) -> None:
         """Nothing is in flight: every step resolves when it runs."""

@@ -8,6 +8,8 @@
 - every `loop_check_every` keyframes, loop candidates are detected by
   trajectory proximity and verified and measured by point-to-plane
   registration of the two keyframes' scans (graph/loop_closure.py);
+- each registration attempt goes to the publisher's metrics stream as an
+  `event: loop` row;
 - `optimized_trajectory()` optimizes the pose graph (odometry chain + loop
   edges) and returns the corrected keyframe trajectory.
 
@@ -33,6 +35,7 @@ class SlamPipeline(LioPipeline):
         config,
         device="cuda",
         grid=None,
+        publisher=None,
         kf_min_translation: float = 2.0,
         kf_min_rotation_deg: float = 15.0,
         loop_check_every: int = 5,
@@ -40,7 +43,7 @@ class SlamPipeline(LioPipeline):
         loop_max_distance: float = 5.0,
         loop_max_rms: float = 0.15,
     ):
-        super().__init__(config, device=device, grid=grid)
+        super().__init__(config, device=device, grid=grid, publisher=publisher)
         self.keyframes = KeyframeStore(KeyframeSelector(kf_min_translation, kf_min_rotation_deg))
         self.loop_edges: List[Tuple[int, int]] = []
         # every registration attempt, accepted or not
@@ -87,6 +90,8 @@ class SlamPipeline(LioPipeline):
             accepted = rms < self._loop_max_rms and n > 200
             self.loop_stats.append({"t": fi.t, "i": i, "j": j, "rms": rms, "matches": n,
                                     "accepted": accepted})
+            if self.publisher is not None:
+                self.publisher.loop(fi.t, i, j, rms, n, accepted)
             if accepted:
                 self.loop_edges.append((i, j))
                 self._graph_loops.append((j, i, R, p))

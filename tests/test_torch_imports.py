@@ -73,9 +73,9 @@ def test_entry_points_default_to_the_card():
 
 
 def test_lifecycle_and_slam_entry_points_default_to_the_card(tmp_path):
-    """The entry points this slice added take `device` too, default "cuda",
-    and raise without a card; the unported `publisher` argument raises,
-    naming the ROADMAP item."""
+    """The lifecycle and SLAM entry points take `device` too, default
+    "cuda", and raise without a card; the CLI takes `--device` (default
+    "cuda") and its multi-device flags raise, naming the ROADMAP item."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     import numpy as np
@@ -100,5 +100,10 @@ def test_lifecycle_and_slam_entry_points_default_to_the_card(tmp_path):
             call()
     assert SlamPipeline(DEFAULT, device="cpu").device.type == "cpu"
     assert LioPipeline.from_hd_map(DEFAULT, str(hd), device="cpu").config.mapping_mode == "none"
-    with pytest.raises(NotImplementedError, match="item 1"):
-        LioPipeline(DEFAULT, device="cpu", publisher=object())
+    from limovelo_tpu_torch.__main__ import main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["sim", "--world", "room", "--duration", "0.1"])
+    for flag in (["--devices", "2"], ["--shard", "map"]):
+        with pytest.raises(NotImplementedError, match="multi-device.*item 1"):
+            main(["sim", "--device", "cpu", *flag])
