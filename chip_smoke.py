@@ -13,7 +13,8 @@ Phases, each printing one JSON line with its elapsed seconds:
            400 Hz, 3 s of a 24 m room with ten boxes, 4 m circle)
   kernel   each kernel against its plain PyTorch version on the card, at the
            main path's shapes (queries from a scan, map at the default table
-           size): the function's outputs, and the kernel's raw outputs held
+           size; N=4096 is a rank's shard of the 8192 bucket on two ranks):
+           the function's outputs, and the kernel's raw outputs held
            to its output contract (ops/cuda/knn.py); the kernel's time, the
            plain version's, the bound, the work the data needs, and the
            early-exit floor (the same groups with every bucket absent)
@@ -74,12 +75,40 @@ Phases, each printing one JSON line with its elapsed seconds:
            the phase reports its launches but is exempt from the
            per-window kernel rule.  It is the only phase that drives the
            racing envelope and the 100 Hz windows on the card
+  shard_points  two ranks on the one card (gloo: NCCL refuses two ranks on
+           one device, so every collective is staged through the host),
+           spawned by parallel.multihost.spawn, each running
+           LioPipeline(main_config(), mesh=..., shard="points") over the main
+           stream: every window on every rank must launch the grouped kernel
+           (each rank counts its own and reports them); rank 0's records are
+           main's record times, positions within 3 cm
+           (tests/test_parallel.py's criterion), ATE below max(0.05 m, 1.5 x
+           main's); per-rank step p50/p95 and the seconds per window spent in
+           collectives; the ranks hold the same replicated estimate
+  shard_map  the same world with shard="map" (the map's table rows split
+           over the ranks, the ring KNN, which is dense: its launches are
+           reported, and it is exempt from the per-window kernel rule): the
+           same record checks; the ranks' bucket counts sum to the
+           telemetry's, and each rank's table holds only buckets that
+           owner_of gives it
+  posegraph_sharded  the same world solves the slam phase's keyframe graph
+           (after the drift re-check) edge-sharded: within 1e-4 of
+           optimize_pose_graph on one device
+  shard_nccl  a world of one rank on nccl, points mode: main's record
+           times, positions within 2 mm
+  shard_points_nccl  shard_points on nccl over two cards, where the machine
+           has two; else the line says it was not run
+  cli_devices  `sim --devices 2 --shard points` through the CLI in process
+           (two spawned ranks on the card, rank 0 writes the TUM file): one
+           line per record, finite, ATE below 0.10 m
   render   the seconds spent rendering each phase's stream
 
 Every phase on the card counts its own kernel launches (set to 0 just
-before it, read just after) and, but for eval, fails if a window launched
-none; the kernels line sums them.  Files go under build/smoke/.  Then the kernels line, nvidia-smi's line and, last,
-{"ok": true, "device": {...}}.  Any failed check raises: the script then
+before it, read just after; in a spawned rank, that rank's) and, but for
+eval and shard_map, fails if a window launched none; the kernels line sums
+them over every phase and rank.  A rank that fails or outlasts its world's
+time limit fails the script.  Files go under build/smoke/.  Then the
+kernels line, nvidia-smi's line and, last, {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero and prints no result.  It needs one card, builds into
 build/ beside this file, and exits non-zero without a card or without the
 package beside it.
@@ -142,6 +171,12 @@ MIN_MATCH_FRAC = 0.15
 D2_ATOL = 1e-5
 K = 5
 SPIN_CYCLES = 10_000_000     # ~5 ms at the H100's 1.98 GHz boost clock
+SHARD_RANKS = 2
+SHARD_POS_TOL_M = 0.03       # tests/test_parallel.py's sharded-vs-single bound
+NCCL_POS_TOL_M = 0.002
+POSEGRAPH_TOL = 1e-4
+SHARD_TIMEOUT_S = 420.0      # a spawned world's limit: a hung rank fails the script
+CLI_SIM_S = 2.0
 DEVICE = "cuda"              # where the main path's phases run
 
 _T0 = time.perf_counter()
@@ -271,12 +306,13 @@ def kernel_map(world_pts: np.ndarray, dev):
 def kernel_shapes(scan_w: np.ndarray, sensor: np.ndarray, dev):
     """The kernel phase's shapes: (N rows, downsampled count, queries,
     rings, max_buckets) for the main path's three point buckets, with the
-    1-ring envelope and the tiered rings=3 NB=32 one."""
+    1-ring envelope and the tiered rings=3 NB=32 one; and a rank's shard of
+    the 8192 bucket on two ranks (N=4096, 1-ring)."""
     leaf = main_config().downsample_prec
-    for n in (8192, 16384, 32768):
+    for n in (4096, 8192, 16384, 32768):
         q_np, n_ds = main_path_queries(scan_w, sensor, n, leaf)
         q = torch.as_tensor(q_np, device=dev)
-        for rings, mb in ((1, None), (3, 32)):
+        for rings, mb in ((1, None), (3, 32))[:1 if n == 4096 else 2]:
             yield n, n_ds, q, rings, mb
 
 
@@ -317,7 +353,7 @@ def kernel_phase(world_pts: np.ndarray, scan_w: np.ndarray, sensor: np.ndarray, 
             bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
             early_exit_ms=early_exit_ms, flop=flops, bytes=nbytes))
     # overflow (far fewer groups than voxels) and an empty map
-    q = next(kernel_shapes(scan_w, sensor, dev))[2]
+    q = next(c for c in kernel_shapes(scan_w, sensor, dev) if c[0] == 8192)[2]
     for mm, g_max, what in ((m, 64, "overflow"), (hg.make_map(params, device=dev), 2048, "empty")):
         got = knn.knn_grouped(mm, q, params, k=K, g_max=g_max)
         want = knn.knn_grouped_plain(mm, q, params, k=K, g_max=g_max)
@@ -739,6 +775,7 @@ def slam_phase():
     ts = time.perf_counter()
     _, ps_opt = pipe.optimized_trajectory()
     opt_s = time.perf_counter() - ts
+    graph = pipe.pose_graph()
     ate_opt = kf_ate(ps_opt)
     attempt = lambda a: (a["i"], a["j"], round(a["rms"], 4), a["matches"], bool(a["accepted"]))
     stats = dict(**window_stats(windows, launches), records=len(res.records), ate_m=ate,
@@ -758,20 +795,224 @@ def slam_phase():
     if ate_drifted <= 0.25 or not pipe.loop_edges or ate_opt >= 0.5 * ate_drifted:
         raise AssertionError(f"loop closure under drift: {len(pipe.loop_edges)} closures, "
                              f"keyframe ATE {ate_opt} m against {ate_drifted} m drifted")
+    return stats, graph
+
+
+# ---------------------------------------------------------------------------
+# multi-device: ranks spawned on this machine
+# ---------------------------------------------------------------------------
+
+
+def shard_rank(mesh, sim, runs):
+    """One spawned rank of the shard phases.  `runs`: (name, what, arg);
+    what "points"/"map" replays the main stream through
+    LioPipeline(main_config(), mesh=mesh, shard=what), counting this rank's
+    grouped-kernel launches, seconds and collective seconds per window;
+    "posegraph" solves arg = (graph, Rs, ps) edge-sharded."""
+    from limovelo_tpu_torch.graph import optimize_pose_graph_sharded
+    from limovelo_tpu_torch.io.simulate import replay_into
+    from limovelo_tpu_torch.mapping.hashgrid import EMPTY_KEY, TOMBSTONE_KEY
+    from limovelo_tpu_torch.ops.cuda import knn
+    from limovelo_tpu_torch.parallel.map_sharding import owner_of
+    from limovelo_tpu_torch.runtime.pipeline import LioPipeline
+
+    if mesh.device.type != "cuda":
+        raise AssertionError(f"rank {mesh.rank} is on {mesh.device}, not the card")
+    out = {"mesh": mesh.describe()}
+    for name, what, arg in runs:
+        t0 = time.perf_counter()
+        if what == "posegraph":
+            Rs, ps, costs = optimize_pose_graph_sharded(*arg, mesh, iters=10)
+            out[name] = dict(Rs=Rs, ps=ps, costs=costs, seconds=time.perf_counter() - t0)
+            continue
+        pipe = LioPipeline(main_config(), mesh=mesh, shard=what)
+        step, windows = pipe.step_window, []
+
+        def counted(t1, t2, pipe=pipe, step=step, windows=windows):
+            n = len(pipe.accum.get_points(t1, t2)[0])
+            real = np.clip(n - mesh.rank * pipe.config.bucket_for(
+                max(n, 1), pipe.config.point_buckets) // mesh.size, 0, None)
+            before, c0, ts = knn.knn_grouped.launches, mesh.stats["seconds"], time.perf_counter()
+            rec = step(t1, t2)
+            windows.append((knn.knn_grouped.launches - before, rec is not None,
+                            time.perf_counter() - ts, mesh.stats["seconds"] - c0, n, real))
+            return rec
+
+        pipe.step_window = counted
+        replay_into(pipe, sim)
+        keys = pipe.map.keys
+        live = ~(torch.all(keys == EMPTY_KEY, -1) | torch.all(keys == TOMBSTONE_KEY, -1))
+        owners = owner_of(keys[live], mesh.size)
+        res = pipe.result
+        out[name] = dict(times=res.times, positions=res.positions, windows=windows,
+                         local_buckets=int(pipe.map.num_buckets),
+                         table_rows=int(keys.shape[0]),
+                         telemetry_buckets=res.records[-1].map_buckets if res.records else None,
+                         owners_ok=bool((owners == mesh.rank).all()),
+                         on_card=all(t.device.type == "cuda" for t in (*pipe.x, *pipe.map)),
+                         seconds=time.perf_counter() - t0)
+    return out
+
+
+def rank_stats(r: dict, size: int) -> dict:
+    """One rank's windows: launches, step p50/p95, collective seconds, and
+    the share of its rows that hold real points (its contiguous block of
+    the padded window)."""
+    w = r["windows"]
+    step_s = np.array([x[2] for x in w])
+    coll_s = np.array([x[3] for x in w])
+    launches = np.array([x[0] for x in w])
+    n, ahead = np.array([x[4] for x in w]), np.array([x[5] for x in w])
+    bucket = np.array([main_config().bucket_for(max(int(k), 1), main_config().point_buckets)
+                       for k in n])
+    rows = bucket // size
+    return dict(windows=len(w), kernel_launches=int(launches.sum()),
+                real_row_share=float(np.mean(np.minimum(ahead, rows) / rows)),
+                windows_without_launch=int((launches < 1).sum()),
+                step_p50_ms=float(np.percentile(step_s, 50) * 1e3),
+                step_p95_ms=float(np.percentile(step_s, 95) * 1e3),
+                collective_s_per_window=float(coll_s.mean()),
+                collective_share=float(coll_s.sum() / step_s.sum()),
+                on_card=r["on_card"], seconds=r["seconds"])
+
+
+def check_shard_run(name: str, ranks: list, sim, res_main, main_ate: float, pos_tol: float,
+                    every_window: bool = True) -> dict:
+    """Rank 0's records against the main phase's (the same record times,
+    positions within `pos_tol`, ATE below max(0.05 m, 1.5 x main's)); every
+    rank on the card and, with `every_window`, each window's grouped-kernel
+    launch on each rank; the ranks' estimates identical."""
+    from limovelo_tpu_torch.runtime.evaluate import ate_rmse
+
+    runs = [r[name] for r in ranks]
+    r0 = runs[0]
+    same_times = np.array_equal(r0["times"], res_main.times)
+    d = (np.linalg.norm(r0["positions"] - res_main.positions, axis=1) if same_times
+         else np.array([np.inf]))
+    ate = ate_rmse(r0["times"], r0["positions"], sim.gt_t, sim.gt_R, sim.gt_p)[0]
+    per_rank = [rank_stats(r, len(ranks)) for r in runs]
+    stats = dict(mesh=ranks[0]["mesh"], ranks=per_rank, records=len(r0["times"]), ate_m=ate,
+                 main_ate_m=main_ate, same_record_times=same_times,
+                 max_pos_diff_m=float(d.max()),
+                 kernel_launches=int(sum(p["kernel_launches"] for p in per_rank)))
+    if not all(p["on_card"] for p in per_rank):
+        raise AssertionError(f"{name}: a rank's state or map left the card")
+    if every_window and any(p["windows_without_launch"] for p in per_rank):
+        raise AssertionError(f"{name}: windows without a kernel launch: "
+                             f"{[p['windows_without_launch'] for p in per_rank]}")
+    if not same_times or d.max() >= pos_tol:
+        raise AssertionError(f"{name}: records differ from the main run's by {d.max()} m "
+                             f"(same times: {same_times})")
+    if not ate < max(0.05, 1.5 * main_ate):
+        raise AssertionError(f"{name}: ATE {ate} m against main's {main_ate} m")
+    for r in runs[1:]:
+        if not np.array_equal(r["positions"], r0["positions"]):
+            raise AssertionError(f"{name}: the ranks' estimates differ")
     return stats
+
+
+def shard_phases(sim, res_main, main_stats, slam_graph):
+    """The multi-device phases: the points- and map-sharded main stream and
+    the edge-sharded pose graph on two gloo ranks sharing the card, a
+    one-rank nccl world, and two nccl ranks where there are two cards.
+    Returns the launches counted on all ranks."""
+    from limovelo_tpu_torch.graph import optimize_pose_graph
+    from limovelo_tpu_torch.parallel import multihost as mh
+
+    main_ate = main_stats["ate_m"]
+    t0 = time.perf_counter()
+    ranks = mh.spawn(shard_rank, SHARD_RANKS, device="cuda", backend="gloo",
+                     timeout_s=SHARD_TIMEOUT_S,
+                     args=(sim, [("shard_points", "points", None), ("shard_map", "map", None),
+                                 ("posegraph_sharded", "posegraph", slam_graph)]))
+    world_s = time.perf_counter() - t0
+    pts = check_shard_run("shard_points", ranks, sim, res_main, main_ate, SHARD_POS_TOL_M)
+    phase("shard_points", **pts, main_step_p50_ms=main_stats["step_p50_ms"],
+          main_step_p95_ms=main_stats["step_p95_ms"], world_s=world_s)
+    launches = pts["kernel_launches"]
+
+    mp = check_shard_run("shard_map", ranks, sim, res_main, main_ate, SHARD_POS_TOL_M,
+                         every_window=False)
+    runs = [r["shard_map"] for r in ranks]
+    bucket_sum = sum(r["local_buckets"] for r in runs)
+    phase("shard_map", **mp, local_buckets=[r["local_buckets"] for r in runs],
+          bucket_sum=bucket_sum, telemetry_buckets=runs[0]["telemetry_buckets"],
+          table_rows=[r["table_rows"] for r in runs], owners_ok=[r["owners_ok"] for r in runs])
+    owners = [r["owners_ok"] for r in runs]
+    if bucket_sum != runs[0]["telemetry_buckets"] or not all(owners):
+        raise AssertionError(f"shard_map: buckets {bucket_sum} against the telemetry's "
+                             f"{runs[0]['telemetry_buckets']}, owners {owners}")
+    launches += mp["kernel_launches"]
+
+    g, Rs, ps = slam_graph
+    Rs1, ps1, _ = optimize_pose_graph(g, Rs, ps, iters=10, device=DEVICE)
+    errs = [max(float(np.abs(r["posegraph_sharded"]["Rs"] - Rs1).max()),
+                float(np.abs(r["posegraph_sharded"]["ps"] - ps1).max())) for r in ranks]
+    phase("posegraph_sharded", keyframes=len(ps), edges=len(g.weights), max_abs_err=errs,
+          seconds=[r["posegraph_sharded"]["seconds"] for r in ranks])
+    if max(errs) >= POSEGRAPH_TOL:
+        raise AssertionError(f"posegraph_sharded: {errs} against one device")
+
+    t0 = time.perf_counter()
+    ranks = mh.spawn(shard_rank, 1, device="cuda", backend="nccl", timeout_s=SHARD_TIMEOUT_S,
+                     args=(sim, [("shard_nccl", "points", None)]))
+    nc = check_shard_run("shard_nccl", ranks, sim, res_main, main_ate, NCCL_POS_TOL_M)
+    phase("shard_nccl", **nc, main_step_p50_ms=main_stats["step_p50_ms"],
+          main_step_p95_ms=main_stats["step_p95_ms"], world_s=time.perf_counter() - t0)
+    launches += nc["kernel_launches"]
+
+    if torch.cuda.device_count() >= SHARD_RANKS:
+        t0 = time.perf_counter()
+        ranks = mh.spawn(shard_rank, SHARD_RANKS, device="cuda", backend="nccl",
+                         timeout_s=SHARD_TIMEOUT_S,
+                         args=(sim, [("shard_points_nccl", "points", None)]))
+        n2 = check_shard_run("shard_points_nccl", ranks, sim, res_main, main_ate,
+                             SHARD_POS_TOL_M)
+        phase("shard_points_nccl", run=True, **n2, world_s=time.perf_counter() - t0)
+        launches += n2["kernel_launches"]
+    else:
+        phase("shard_points_nccl", run=False,
+              reason=f"{torch.cuda.device_count()} card(s): nccl needs a card per rank")
+    return launches
+
+
+def cli_devices_phase():
+    """`sim --devices 2 --shard points` through the CLI in process."""
+    from limovelo_tpu_torch.__main__ import main as cli
+    from limovelo_tpu_torch.io.simulate import circle_trajectory, room_world, simulate
+    from limovelo_tpu_torch.runtime.evaluate import ate_rmse
+
+    t0 = time.perf_counter()
+    cfg = smoke_profiles()["smoke_sim"]
+    out = SMOKE_DIR / "sim_devices.tum"
+    cli(["sim", "--world", "room", "--duration", str(CLI_SIM_S), "--config", "smoke_sim",
+         "--devices", str(SHARD_RANKS), "--shard", "points", "--out", str(out)])
+    cli_s = time.perf_counter() - t0
+    times, pos = read_tum(out)
+    # the CLI's own stream (`sim`: its configuration and simulator defaults)
+    sim = simulate(room_world(), circle_trajectory(omega=0.5),
+                   cfg.replace(real_time=False, min_dist=0.5, downsample_prec=0.3),
+                   duration=CLI_SIM_S)
+    ate = ate_rmse(times, pos, sim.gt_t, sim.gt_R, sim.gt_p)[0]
+    phase("cli_devices", records=len(times), ate_m=ate, cli_s=cli_s,
+          seconds=time.perf_counter() - t0)
+    if len(times) < 5 or not np.all(np.isfinite(pos)) or not ate < EVAL_ATE_M:
+        raise AssertionError(f"cli_devices: {len(times)} records, ATE {ate} m")
 
 
 def smoke_profiles():
     """The configurations the CLI phases name, added to the port's
     PROFILES (the card machine has no PyYAML for a --config file): the
-    KITTI and XALOC profiles with the 1-ring grouped KNN.  The XALOC
+    KITTI, XALOC and DEFAULT profiles with the 1-ring grouped KNN.  The XALOC
     profile's warm-up has as many deltas as times, which the warm-up
     schedule rejects in both packages (ROADMAP, "Faults to reproduce, not
     fix"): the bag phase warms up as DEFAULT does, 10 → 20 → 50 Hz windows
     at 0.5 s and 1.0 s."""
-    from limovelo_tpu_torch.config import KITTI, PROFILES, XALOC, InitializationParams
+    from limovelo_tpu_torch.config import (DEFAULT, KITTI, PROFILES, XALOC,
+                                           InitializationParams)
 
     PROFILES["smoke_kitti"] = KITTI.replace(knn_rings=1, knn_backend="grouped")
+    PROFILES["smoke_sim"] = DEFAULT.replace(knn_rings=1, knn_backend="grouped")
     PROFILES["smoke_xaloc"] = XALOC.replace(
         knn_rings=1, knn_backend="grouped",
         Initialization=InitializationParams(times=(0.5, 1.0), deltas=(0.1, 0.05, 0.02)))
@@ -1054,8 +1295,10 @@ def main() -> int:
     prune_stats = prune_phase()
     phase_launches["prune"] = (prune_stats["kernel_launches"]
                                + prune_stats["unpruned"]["kernel_launches"])
-    slam_stats = slam_phase()
+    slam_stats, slam_graph = slam_phase()
     phase_launches["slam"] = slam_stats["kernel_launches"]
+    phase_launches["shard"] = shard_phases(sim, res, stats, slam_graph)
+    cli_devices_phase()
     render_s.update(prune=prune_stats["sim_s"], slam=slam_stats["sim_s"])
     for name, run in (("kitti", kitti_phase), ("bag", bag_phase)):
         st = run()

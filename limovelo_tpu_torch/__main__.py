@@ -11,8 +11,13 @@ the reference's roslaunch files (`launch/*.launch`, SURVEY.md §2.13).
     python -m limovelo_tpu_torch viz render --map map.npz --traj traj.tum --out run.png
 
 The subcommands and flags are the JAX package's, plus `--device` (default
-`cuda`; `cpu` runs the plain versions).  `--devices` and `--shard` raise:
-multi-device is not ported yet.  A `--config` that names no profile of
+`cuda`; `cpu` runs the plain versions).  `--devices N` runs the step on N
+ranks, one process each (`--shard points` replicates the map, `map`
+partitions it): under torchrun (`WORLD_SIZE` set) the process joins the
+existing group, else it spawns N ranks on this machine, rank r on
+cuda:(r % cards) (gloo when ranks share a card, nccl when each owns one) or
+on the CPU with `--device cpu`.  Every rank replays the same feed; rank 0
+alone prints and writes the outputs.  A `--config` that names no profile of
 `config.PROFILES` is read as a YAML file (PyYAML); `viz render` and
 `--render` need matplotlib.  Both are imported only when used.
 """
@@ -41,26 +46,34 @@ def _load_config(args, default_profile="default"):
     return cfg.replace(**overrides) if overrides else cfg
 
 
-def _write_outputs(pipe, args):
+def _write_outputs(pipe, args, writer: bool = True):
+    """The run's outputs.  With a mesh every rank calls this (gathering a
+    map-sharded map and saving a checkpoint are collectives) and only the
+    `writer` rank writes."""
     import numpy as np
 
-    from .runtime.checkpoint import compact_map_points
+    from .runtime.checkpoint import compact_map_points, save_checkpoint
     from .runtime.evaluate import write_kitti, write_tum
     from .runtime.slam import SlamPipeline
 
+    m = pipe.full_map() if (args.render or args.ply or args.save_map) else None
+    if not writer:
+        if args.checkpoint and pipe.mesh is not None:
+            save_checkpoint(args.checkpoint, pipe)    # a collective; rank 0 writes
+        return
     res = pipe.result
     print(f"processed {len(res.records)} state updates")
     if args.render and res.records:
         from .viz import render_run
 
         render_run(args.render, res.positions, times=res.times,
-                   map_pts=compact_map_points(pipe.map), title=f"limovelo_tpu_torch — {args.cmd}")
+                   map_pts=compact_map_points(m), title=f"limovelo_tpu_torch — {args.cmd}")
         print(f"figure → {args.render}")
     if args.ply:
         from .viz import write_ply
         from .viz.export import height_colors
 
-        mp = compact_map_points(pipe.map)
+        mp = compact_map_points(m)
         write_ply(args.ply, mp, height_colors(mp) if len(mp) else None)
         print(f"map cloud → {args.ply}")
     if args.out:
@@ -85,11 +98,9 @@ def _write_outputs(pipe, args):
     if args.save_map:
         from .runtime.checkpoint import save_map
 
-        save_map(args.save_map, pipe.map, pipe.grid)
+        save_map(args.save_map, m, pipe.grid)
         print(f"HD map → {args.save_map}")
     if args.checkpoint:
-        from .runtime.checkpoint import save_checkpoint
-
         save_checkpoint(args.checkpoint, pipe)
         print(f"checkpoint → {args.checkpoint}")
     if res.records:
@@ -101,11 +112,11 @@ def _write_outputs(pipe, args):
         }))
 
 
-def _make_pipe(cfg, args):
-    from .runtime.pipeline import _NOT_PORTED, LioPipeline
+def _make_pipe(cfg, args, mesh=None):
+    """The JAX CLI's choice of pipeline: `--loop-closure` takes the mesh
+    (point-sharded), `--hd-map` runs without it, the rest with `--shard`."""
+    from .runtime.pipeline import LioPipeline
 
-    if args.devices is not None or args.shard is not None:
-        raise NotImplementedError("--devices/--shard (multi-device): " + _NOT_PORTED.format(1))
     if args.loop_closure:
         from .runtime.slam import SlamPipeline
 
@@ -113,7 +124,7 @@ def _make_pipe(cfg, args):
             raise SystemExit("--loop-closure with --hd-map is not supported "
                              "(prelocalization runs against a frozen map)")
         return SlamPipeline(
-            cfg, device=args.device,
+            cfg, device=args.device, mesh=mesh,
             kf_min_translation=args.kf_min_translation,
             loop_min_index_gap=args.loop_min_gap,
             loop_max_distance=args.loop_max_distance,
@@ -121,7 +132,48 @@ def _make_pipe(cfg, args):
         )
     if args.hd_map:
         return LioPipeline.from_hd_map(cfg, args.hd_map, device=args.device)
-    return LioPipeline(cfg, device=args.device)
+    return LioPipeline(cfg, device=args.device, mesh=mesh, shard=args.shard)
+
+
+def _run(mesh, cfg, args):
+    """Build the pipeline, replay the feed and write the outputs; with a
+    `mesh`, one rank of a `--devices` run (rank 0 prints and writes)."""
+    import contextlib
+    import io
+
+    writer = mesh is None or mesh.rank == 0
+    quiet = contextlib.nullcontext() if writer else contextlib.redirect_stdout(io.StringIO())
+    with quiet:
+        pipe = _make_pipe(cfg, args, mesh)
+        if args.resume:
+            from .runtime.checkpoint import load_checkpoint
+
+            load_checkpoint(args.resume, pipe)
+
+        t0 = time.time()
+        if args.profile and writer:
+            from .runtime.profiling import trace
+
+            with trace(args.profile):
+                _replay(pipe, cfg, args)
+            print(f"profiler trace → {args.profile}")
+        else:
+            _replay(pipe, cfg, args)
+        print(f"wall time: {time.time() - t0:.1f} s")
+        _write_outputs(pipe, args, writer)
+
+
+def _run_devices(cfg, args):
+    """`--devices N`: join the torchrun group when one is set up, else
+    spawn N ranks on this machine."""
+    from .parallel import multihost as mh
+
+    if mh.init_distributed(device=args.device):
+        mesh = mh.global_mesh(args.device)
+        if mesh.size != args.devices:
+            raise SystemExit(f"--devices {args.devices}: the process group has {mesh.size} ranks")
+        return _run(mesh, cfg, args)
+    mh.spawn(_run, args.devices, args=(cfg, args), device=args.device)
 
 
 def _read_tum(path):
@@ -192,9 +244,11 @@ def main(argv=None):
         sp.add_argument("--profile", default=None,
                         help="capture a torch.profiler trace of the replay into this dir")
         sp.add_argument("--devices", type=int, default=None,
-                        help="multi-device step (not ported yet: raises)")
-        sp.add_argument("--shard", default=None, choices=["points", "map"],
-                        help="with --devices (not ported yet: raises)")
+                        help="run the step on N ranks, one process each (point-sharded "
+                             "window, all-reduced normal equations)")
+        sp.add_argument("--shard", default="points", choices=["points", "map"],
+                        help="with --devices: 'points' replicates the map, "
+                             "'map' also partitions map table rows (D× capacity)")
         sp.add_argument("--loop-closure", action="store_true",
                         help="SLAM mode: keyframes + loop closure + pose-graph "
                              "backend; exports raw AND optimized trajectories")
@@ -263,23 +317,9 @@ def main(argv=None):
     cfg = _load_config(args, "kitti" if args.cmd == "kitti" else "default")
     if args.cmd == "sim":
         cfg = cfg.replace(real_time=False, min_dist=0.5, downsample_prec=0.3)
-    pipe = _make_pipe(cfg, args)
-    if args.resume:
-        from .runtime.checkpoint import load_checkpoint
-
-        load_checkpoint(args.resume, pipe)
-
-    t0 = time.time()
-    if args.profile:
-        from .runtime.profiling import trace
-
-        with trace(args.profile):
-            _replay(pipe, cfg, args)
-        print(f"profiler trace → {args.profile}")
-    else:
-        _replay(pipe, cfg, args)
-    print(f"wall time: {time.time() - t0:.1f} s")
-    _write_outputs(pipe, args)
+    if args.devices is not None:
+        return _run_devices(cfg, args)
+    _run(None, cfg, args)
 
 
 def _replay(pipe, cfg, args):

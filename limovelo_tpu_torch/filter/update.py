@@ -99,11 +99,17 @@ def _place_global(x: NavState, pts_lidar: torch.Tensor) -> torch.Tensor:
     return (pts_lidar @ x.R_LI.T + x.t_LI) @ x.R.T + x.p
 
 
-def _search(x: NavState, m: HashGridMap, pts_lidar, grid: GridParams, static_cfg):
-    """The KNN half of the match: place globally, query the map.
+def _search(x: NavState, m: HashGridMap, pts_lidar, grid: GridParams, static_cfg,
+            knn_fn=None):
+    """The KNN half of the match: place globally, query the map (through
+    `knn_fn`, with `mapping.hashgrid.knn`'s signature, when given).
     Returns (p_glob, neighbors (N,k,3), sq (N,k), nb_valid (N,k))."""
     p_glob = _place_global(x, pts_lidar)
-    if static_cfg.knn_backend == "grouped":
+    if knn_fn is not None:
+        nb, sq, nb_valid = knn_fn(m, p_glob, grid, k=static_cfg.NUM_MATCH_POINTS,
+                                  rings=static_cfg.knn_rings,
+                                  max_buckets=static_cfg.knn_max_buckets)
+    elif static_cfg.knn_backend == "grouped":
         from ..ops.cuda.knn import knn_grouped
 
         nb, sq, nb_valid = knn_grouped(m, p_glob, grid, k=static_cfg.NUM_MATCH_POINTS)
@@ -128,10 +134,10 @@ def _gate(p_glob, fit, mask, dyn):
     return r, valid
 
 
-def _match(x, m, pts_lidar, mask, grid, static_cfg, dyn):
+def _match(x, m, pts_lidar, mask, grid, static_cfg, dyn, knn_fn=None):
     """Place the window with the current estimate, KNN each point, fit
     planes, gate."""
-    p_glob, nb, sq, nb_valid = _search(x, m, pts_lidar, grid, static_cfg)
+    p_glob, nb, sq, nb_valid = _search(x, m, pts_lidar, grid, static_cfg, knn_fn)
     fit = _fit(nb, sq, nb_valid, dyn)
     r, valid = _gate(p_glob, fit, mask, dyn)
     return r, fit, valid
@@ -163,13 +169,18 @@ def _displacement_bound(x: NavState, xs: NavState, max_range) -> torch.Tensor:
 
 def iterated_update(x0: NavState, P: torch.Tensor, m: HashGridMap, pts_lidar: torch.Tensor,
                     mask: torch.Tensor, grid: GridParams, static_cfg,
-                    dyn) -> Tuple[NavState, torch.Tensor, UpdateDiagnostics]:
+                    dyn, mesh=None,
+                    knn_fn=None) -> Tuple[NavState, torch.Tensor, UpdateDiagnostics]:
     """Run the full iterated update; returns (x⁺, P⁺, diagnostics).
 
     `static_cfg.match_mode`: "rematch" searches the map every iteration;
     "freeze" once at the predicted state; "auto" like freeze, but searches
     again whenever the iterate's placement moved more than
-    `dyn.match_refresh_m` since the last search."""
+    `dyn.match_refresh_m` since the last search.
+
+    `mesh` (the JAX package's `axis_name`): the window is this rank's shard
+    and the normal equations are all-reduced.  `knn_fn` replaces the map
+    query (the map-sharded step's ring KNN)."""
     dtype, dev = pts_lidar.dtype, pts_lidar.device
     # 1/noise in float32, as the JAX package computes it from its f32 scalar
     r_inv = float(np.float32(1.0) / np.float32(dyn.LiDAR_noise))
@@ -180,10 +191,15 @@ def iterated_update(x0: NavState, P: torch.Tensor, m: HashGridMap, pts_lidar: to
     search_state = None
     max_range = None
     if mode in ("freeze", "auto"):
-        _, nb0, sq0, nbv0 = _search(x0, m, pts_lidar, grid, static_cfg)
+        _, nb0, sq0, nbv0 = _search(x0, m, pts_lidar, grid, static_cfg, knn_fn)
         search_state = (x0, nb0, nbv0, _fit(nb0, sq0, nbv0, dyn))
         norms = torch.linalg.vector_norm(pts_lidar, dim=-1)
         max_range = torch.amax(torch.where(mask, norms, torch.zeros_like(norms)))
+        if mesh is not None:
+            # the refresh decision precedes a search that may hold
+            # collectives: reduce its one shard-local input, so every rank
+            # takes the same branch
+            max_range = mesh.pmax(max_range)
 
     x = x0
     done = torch.zeros((), dtype=torch.bool, device=dev)
@@ -191,13 +207,13 @@ def iterated_update(x0: NavState, P: torch.Tensor, m: HashGridMap, pts_lidar: to
     out = None
     for _ in range(static_cfg.MAX_NUM_ITERS):
         if mode == "rematch":
-            r, fit, valid = _match(x, m, pts_lidar, mask, grid, static_cfg, dyn)
+            r, fit, valid = _match(x, m, pts_lidar, mask, grid, static_cfg, dyn, knn_fn)
         else:
             if mode == "auto":
                 # a host decision: the search only runs when it is needed
                 need = _displacement_bound(x, search_state[0], max_range) > dyn.match_refresh_m
                 if bool(need):
-                    _, nb, sq, nbv = _search(x, m, pts_lidar, grid, static_cfg)
+                    _, nb, sq, nbv = _search(x, m, pts_lidar, grid, static_cfg, knn_fn)
                     search_state = (x, nb, nbv, _fit(nb, sq, nbv, dyn))
             _, nb, nbv, fit = search_state
             r, valid = _match_frozen(x, pts_lidar, nb, nbv, fit, mask, dyn)
@@ -208,6 +224,9 @@ def iterated_update(x0: NavState, P: torch.Tensor, m: HashGridMap, pts_lidar: to
         Hw = H * w[:, None]
         HtH = Hw.T @ H                                     # (12,12)
         Htr = Hw.T @ (r * w)                               # (12,)
+        if mesh is not None:                               # one all-reduce for both
+            both = mesh.psum(torch.cat([HtH, Htr[:, None]], dim=1))
+            HtH, Htr = both[:, :12], both[:, 12]
 
         L = chart_transport(x, x0, dtype)
         dx_prior = boxminus(x, x0)
@@ -249,9 +268,14 @@ def iterated_update(x0: NavState, P: torch.Tensor, m: HashGridMap, pts_lidar: to
     P_new = (0.5 * (P_new + P_new.T)).to(dtype)
 
     n_matches = torch.sum(valid).to(torch.int32)
+    res_sum = torch.sum(torch.abs(r) * w)
+    if mesh is not None:
+        # the count travels as a float32, exact below 2²⁴ matches
+        both = mesh.psum(torch.stack([n_matches.to(dtype), res_sum]))
+        n_matches, res_sum = both[0].to(torch.int32), both[1]
     diag = UpdateDiagnostics(
         num_matches=n_matches,
-        mean_residual=torch.sum(torch.abs(r) * w) / torch.clamp(n_matches, min=1),
+        mean_residual=res_sum / torch.clamp(n_matches, min=1),
         eigenvalues=eigval_last,
         delta_norm=max_d_last,
         iterations=it,

@@ -114,3 +114,42 @@ def boxplus(R: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
 def boxminus(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
     """R1 ⊟ R2 = Log(R2ᵀ R1), the right-perturbation error."""
     return log(R2.transpose(-1, -2) @ R1)
+
+
+def left_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """J_l(w), so that Exp(w + δ) ≈ Exp(J_l(w)·δ)·Exp(w):
+    I + (1 − cos θ)/θ² · hat(w) + (θ − sin θ)/θ³ · hat(w)², Taylor-safe at 0."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2)
+    W = hat(w)
+    small = theta < 1e-4
+    one = torch.ones_like(theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / torch.where(small, one, theta2))
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / torch.where(small, one, theta2 * theta))
+    return _eye_like(W) + b[..., None, None] * W + c[..., None, None] * (W @ W)
+
+
+def left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """J_l⁻¹(w) = I − ½·hat(w) + (1 − (θ/2)·cot(θ/2))/θ² · hat(w)², Taylor-safe
+    at 0 (J_l⁻¹(w) = J_r⁻¹(−w))."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2)
+    W = hat(w)
+    small = theta < 1e-4
+    one = torch.ones_like(theta)
+    half = theta * 0.5
+    c = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                    (1.0 - half * torch.cos(half) / torch.where(small, one, torch.sin(half)))
+                    / torch.where(small, one, theta2))
+    return _eye_like(W) - 0.5 * W + c[..., None, None] * (W @ W)
+
+
+def normalize(R: torch.Tensor) -> torch.Tensor:
+    """Project a near-rotation matrix back onto SO(3): two Newton steps of
+    R ← R·(3I − RᵀR)/2 (no SVD)."""
+    for _ in range(2):
+        RtR = R.transpose(-1, -2) @ R
+        R = R @ (1.5 * _eye_like(RtR) - 0.5 * RtR)
+    return R

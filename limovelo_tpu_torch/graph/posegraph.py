@@ -1,5 +1,5 @@
 """Pose-graph optimization on the device (port of
-`limovelo_tpu/graph/posegraph.py`, single device).
+`limovelo_tpu/graph/posegraph.py`).
 
 Keyframes form an SE(3) pose graph — odometry edges from the LIO chain,
 loop edges from loop_closure.py — optimized by batched Gauss-Newton:
@@ -11,6 +11,10 @@ loop edges from loop_closure.py — optimized by batched Gauss-Newton:
   into the dense 6K×6K normal matrix and solved densely (f32, as in the JAX
   package).
 - The gauge is fixed by a strong prior on pose 0.
+- `optimize_pose_graph_sharded` partitions the edges over the ranks of a
+  mesh (parallel/sharding.py): each rank builds its edges' share of the
+  normal equations, and Hd, bd and the cost are all-reduced every
+  iteration; the dense solve runs replicated.
 """
 
 from __future__ import annotations
@@ -156,3 +160,54 @@ def optimize_pose_graph(graph: PoseGraph, Rs0: np.ndarray, ps0: np.ndarray, iter
         Rs, ps = _apply_gn_step(Rs, ps, Hd, bd, K)
         costs.append(cost)
     return Rs.cpu().numpy(), ps.cpu().numpy(), torch.stack(costs).cpu().numpy()
+
+
+def make_sharded_solver(mesh, num_poses: int, iters: int = 10):
+    """The edge-sharded Gauss-Newton: a function of (Rs, ps, and this rank's
+    edges ei, ej, rel_R, rel_p, w) that returns (Rs, ps, cost per
+    iteration) on every rank.  Each iteration all-reduces the rank's
+    (Hd, bd, cost) in one collective: the sum over edges is exact, and with
+    landmark-free edges the Schur complement is the plain sum."""
+    K = num_poses
+
+    def solve(Rs, ps, ei, ej, rel_R, rel_p, w):
+        costs = []
+        n = 6 * K
+        for _ in range(iters):
+            Hd, bd, cost = _build_normal_equations(Rs, ps, ei, ej, rel_R, rel_p, w, K)
+            red = mesh.psum(torch.cat([Hd.reshape(-1), bd, cost.reshape(1)]))
+            Hd, bd, cost = red[:n * n].reshape(n, n), red[n * n:n * n + n], red[-1]
+            Rs, ps = _apply_gn_step(Rs, ps, Hd, bd, K)
+            costs.append(cost)
+        return Rs, ps, torch.stack(costs)
+
+    return solve
+
+
+def optimize_pose_graph_sharded(graph: PoseGraph, Rs0: np.ndarray, ps0: np.ndarray, mesh,
+                                iters: int = 10) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The edge-sharded entry point (every rank of `mesh` calls it with the
+    same graph): the edge list is padded to a multiple of the world size
+    with zero-weight identity edges (exact no-ops in the sum), each rank
+    takes its contiguous block, and the solve runs on the mesh's device.
+    Returns (Rs, ps, cost per iteration) as numpy arrays, alike on every
+    rank."""
+    ei = np.asarray(graph.edges_i, np.int64)
+    ej = np.asarray(graph.edges_j, np.int64)
+    rel_R = np.stack(graph.rel_R).astype(np.float32)
+    rel_p = np.stack(graph.rel_p).astype(np.float32)
+    w = np.asarray(graph.weights, np.float32)
+    pad = (-len(w)) % mesh.size
+    if pad:
+        ei = np.concatenate([ei, np.zeros(pad, np.int64)])
+        ej = np.concatenate([ej, np.zeros(pad, np.int64)])
+        rel_R = np.concatenate([rel_R, np.broadcast_to(np.eye(3, dtype=np.float32), (pad, 3, 3))])
+        rel_p = np.concatenate([rel_p, np.zeros((pad, 3), np.float32)])
+        w = np.concatenate([w, np.zeros(pad, np.float32)])
+    per = len(w) // mesh.size
+    mine = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(mesh.device)
+    solver = make_sharded_solver(mesh, num_poses=len(ps0), iters=iters)
+    Rs, ps, costs = solver(T(np.asarray(Rs0, np.float32)), T(np.asarray(ps0, np.float32)),
+                           T(ei[mine]), T(ej[mine]), T(rel_R[mine]), T(rel_p[mine]), T(w[mine]))
+    return Rs.cpu().numpy(), ps.cpu().numpy(), costs.cpu().numpy()

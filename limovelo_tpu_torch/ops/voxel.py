@@ -5,6 +5,9 @@ voxel's centroid (the medoid — a centroid of points straddling a surface
 junction lies off every surface, the medoid stays on a measured one).  The
 output keeps the input's padded length with a validity mask and the real
 count; valid rows come first in voxel order.
+
+`onion_downsample` is the reference's range-banded decimation, kept as API
+surface (the reference pipeline uses the voxel grid).
 """
 
 from __future__ import annotations
@@ -91,4 +94,47 @@ def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, leaf: float) -> Down
         mask=out_mask,
         count=n_vox.to(torch.int32),
         idx=torch.where(out_mask, orig_idx, torch.zeros_like(orig_idx)),
+    )
+
+
+# Range bands of `Compensator::onion_downsample` (Compensator.cpp:165-181):
+# (low, high, base decimation divisor).  Points beyond the last band are
+# always kept; the divisor is divided by config.downsample_rate.
+_ONION_BANDS = (
+    (0.0, 4.0, 256),
+    (4.0, 6.0, 64),
+    (6.0, 9.0, 32),
+    (9.0, 12.0, 16),
+    (12.0, 22.0, 8),
+    (22.0, 30.0, 4),
+    (30.0, 50.0, 2),
+)
+
+
+def onion_downsample(pts: torch.Tensor, mask: torch.Tensor, downsample_rate: int) -> Downsampled:
+    """Range-banded decimation (`Compensator::onion_downsample`): near points
+    decimated hard, far points kept.  In a band with divisor d, a point is
+    kept when its index in the window is a multiple of d // rate (every
+    point when that is 1); beyond 50 m every point is kept.  The kept points
+    come out as a dense prefix in input order (the `voxel_downsample`
+    contract)."""
+    N = pts.shape[0]
+    r = torch.sqrt(sq_norm3(pts))
+    idx = torch.arange(N, dtype=torch.int32, device=pts.device)
+
+    keep = r > _ONION_BANDS[-1][1]
+    for lo, hi, div in _ONION_BANDS:
+        step = div // max(int(downsample_rate), 1)
+        in_band = (lo < r) & (r < hi)
+        keep = keep | (in_band if step <= 1 else in_band & (idx % step == 0))
+    keep = keep & mask
+
+    # stable compaction: kept rows first, each group in input order
+    order = torch.sort((~keep).to(torch.uint8), stable=True).indices
+    km = keep[order]
+    return Downsampled(
+        pts=torch.where(km[:, None], pts[order], torch.zeros_like(pts)),
+        mask=km,
+        count=torch.sum(keep).to(torch.int32),
+        idx=torch.where(km, order.to(torch.int32), torch.zeros_like(idx)),
     )

@@ -13,6 +13,12 @@ package loads the other's.
 
 Saving copies every tensor to the host before it returns, so the next step
 may write the map's tables in place.
+
+With a mesh, every rank calls `save_checkpoint` and `load_checkpoint`.  The
+file is the JAX package's for the same mesh: a point-sharded run saves its
+replicated map, a map-sharded one the ranks' shards joined (table rows in
+rank order, counters of shape (D,)); rank 0 writes it, and on loading each
+rank takes its own rows.
 """
 
 from __future__ import annotations
@@ -81,8 +87,12 @@ def save_checkpoint(path: str, pipe) -> None:
     """Serialize the pipeline's state for an exact resume: filter, map, time
     bookkeeping, the resolved corrected-state history (`_anchors`, which the
     offline re-deskew needs), the mapping and prune cadence, and the
-    accumulator's buffered points and IMUs."""
+    accumulator's buffered points and IMUs.  With a mesh every rank calls
+    it (a map-sharded map is gathered) and rank 0 writes."""
     pipe.flush()
+    m = pipe.full_map()
+    if pipe.mesh is not None and pipe.mesh.rank != 0:
+        return
     anc = pipe._anchors
     anc_arrays = {}
     if anc:
@@ -119,7 +129,7 @@ def save_checkpoint(path: str, pipe) -> None:
         missing_point_times=acc.missing_point_times,
         **anc_arrays,
         **acc_arrays,
-        **{f"map_{k}": v for k, v in _map_to_host(pipe.map).items()},
+        **{f"map_{k}": v for k, v in _map_to_host(m).items()},
     )
 
 
@@ -144,14 +154,16 @@ def load_checkpoint(path: str, pipe) -> None:
     # has no occupancy mask); older files may hold zeros there
     cell_d2 = np.asarray(d["map_cell_d2"])
     pts = np.where(np.isfinite(cell_d2)[..., None], np.asarray(d["map_pts"]), np.float32(FAR))
-    pipe.map = HashGridMap(
-        keys=T(d["map_keys"]),
-        pts=T(pts),
-        cell_d2=T(cell_d2),
-        num_points=T(d["map_num_points"]),
-        num_buckets=T(d["map_num_buckets"]),
-        dropped=T(d["map_dropped"]) if "map_dropped" in d else T(0, torch.int32),
-    )
+    fields = dict(keys=d["map_keys"], pts=pts, cell_d2=cell_d2, num_points=d["map_num_points"],
+                  num_buckets=d["map_num_buckets"],
+                  dropped=d["map_dropped"] if "map_dropped" in d
+                  else np.zeros(np.shape(d["map_num_points"]), np.int32))
+    if pipe.mesh is not None and pipe.shard == "map":
+        from ..interop import split_sharded_map
+
+        pipe.map = split_sharded_map(fields, pipe.mesh.size, dev)[pipe.mesh.rank]
+    else:
+        pipe.map = HashGridMap(**{k: T(v) for k, v in fields.items()})
     pipe.t2 = float(d["t2"])
     pipe.last_time_updated = float(d["last_updated"])
     pipe.last_time_integrated = float(d["last_integrated"])

@@ -1,5 +1,5 @@
 """The orchestrator: drives the localize→map loop over accumulated sensors
-(port of `limovelo_tpu/runtime/pipeline.py`, single device).
+(port of `limovelo_tpu/runtime/pipeline.py`).
 
 Host code here does the time management (t1/t2 and the warm-up delta
 schedule), index bookkeeping, padding and recording; the math runs in
@@ -24,6 +24,17 @@ A `publisher` (`runtime.publishers.Publisher`) receives each accepted
 update's state, TF and extrinsics, and the window cloud, map stream, planes
 and state history when a sink for them is attached; each of those is read
 from the device only then.
+
+With a `mesh` (parallel/sharding.py) every rank runs this pipeline on the
+same feed and the step takes the rank's rows of each padded window:
+`shard="points"` replicates the map, `shard="map"` partitions its table
+rows over the ranks (parallel/map_sharding.py).  Every host decision reads
+replicated values (the feed, the telemetry), so the ranks call their
+collectives in one order.  Each accepted window's per-rank outputs (the
+clouds, the medoid indices, the planes) are all-gathered at resolution on
+every rank, whether or not a sink is attached here: which windows are
+gathered is fixed when the mesh is given, so a publisher attached on rank 0
+alone leaves no rank outside a collective.
 """
 
 from __future__ import annotations
@@ -41,7 +52,7 @@ from ..config import DynParams
 from ..device import resolve_device
 from ..filter.process import ImuWindow, process_noise_Q
 from ..geometry import state as st
-from ..mapping.hashgrid import GridParams, make_map, prune
+from ..mapping.hashgrid import GridParams, HashGridMap, make_map, prune
 from ..step import (TEL_ANCHOR_T, TEL_DELTA_NORM, TEL_DS_COUNT, TEL_EIG, TEL_EXT_R,
                     TEL_EXT_T, TEL_ITERS, TEL_MAP_BUCKETS, TEL_MAP_DROPPED,
                     TEL_MAP_POINTS, TEL_MATCHES, TEL_P, TEL_R, TEL_RESIDUAL,
@@ -110,14 +121,33 @@ class AnchorRec(NamedTuple):
 class LioPipeline:
     """Feed sensors in (any interleaving), call `spin()`, read the trajectory
     out of `result`.  Runs on `device` ("cuda" by default; raises when no
-    card is present — pass device="cpu" to run the plain versions)."""
+    card is present — pass device="cpu" to run the plain versions), or on
+    the mesh's device with a `mesh` (every rank builds the pipeline with the
+    same arguments)."""
 
     def __init__(self, config, device="cuda", grid: Optional[GridParams] = None,
-                 publisher=None):
+                 publisher=None, mesh=None, shard: str = "points"):
         self.config = config
         self.publisher = publisher
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.grid = grid or GridParams.from_config(config)
+        self.mesh = mesh
+        self.shard = shard
+        self._sharded_step = None
+        if mesh is not None:
+            if config.mapping_mode == "offline":
+                raise ValueError("mesh mode supports mapping 'online' or 'none'; the offline "
+                                 "re-deskew mapping step is single-device")
+            if shard == "map":
+                from ..parallel.map_sharding import make_map_sharded_step
+
+                self._sharded_step = make_map_sharded_step(mesh, config, self.grid)
+            elif shard == "points":
+                from ..parallel.sharding import make_sharded_step
+
+                self._sharded_step = make_sharded_step(mesh, config, self.grid)
+            else:
+                raise ValueError(f"shard must be 'points' or 'map', got {shard!r}")
         self.accum = Accumulator(config)
         self._result = OdometryResult()
 
@@ -164,16 +194,19 @@ class LioPipeline:
 
     @classmethod
     def from_hd_map(cls, config, map_path: str, device="cuda",
-                    grid: Optional[GridParams] = None, publisher=None) -> "LioPipeline":
+                    grid: Optional[GridParams] = None, publisher=None, mesh=None,
+                    shard: str = "points") -> "LioPipeline":
         """Localize against a prebuilt HD map (saved by `checkpoint.save_map`
         of either package).  Unless the config sets `mapping`, the map is
         frozen (mode "none"): nothing is inserted and the map stays
-        bit-identical for the whole run."""
+        bit-identical for the whole run.  With a mesh the map is replicated
+        (`shard="points"`); map sharding refuses a preloaded map when the
+        run starts, as the JAX package does."""
         from .checkpoint import load_map
 
         if config.mapping is None:
             config = config.replace(mapping="none")
-        pipe = cls(config, device=device, grid=grid, publisher=publisher)
+        pipe = cls(config, device=device, grid=grid, publisher=publisher, mesh=mesh, shard=shard)
         pipe._preloaded_map = load_map(map_path, pipe.grid, device=pipe.device)
         return pipe
 
@@ -197,8 +230,17 @@ class LioPipeline:
         self.x = st.make_initial(self.config, R0=R0, device=dev)
         self.P = st.initial_covariance(self.config, device=dev)
         self.map = self._preloaded_map
+        map_sharded = self.mesh is not None and self.shard == "map"
         if self.map is None:
-            self.map = make_map(self.grid, device=dev)
+            if map_sharded:
+                from ..parallel.map_sharding import make_sharded_map
+
+                self.map = make_sharded_map(self.mesh, self.grid)
+            else:
+                self.map = make_map(self.grid, device=dev)
+        elif map_sharded:
+            raise ValueError("HD-map prelocalization is not supported with map-block "
+                             "sharding; use shard='points'")
         t0 = self.accum.initial_time
         self.t2 = t0
         self.last_time_updated = t0
@@ -275,6 +317,12 @@ class LioPipeline:
             anchor_a = nxt.a if nxt is not None else np.zeros(3, np.float32)
             anchor_w = nxt.w if nxt is not None else np.zeros(3, np.float32)
 
+        if self.mesh is not None:
+            # the rank's contiguous block of the padded window's rows
+            from ..parallel.sharding import shard_rows
+
+            rows = shard_rows(self.mesh, len(pts_pad))
+            pts_pad, t_pad, mask = pts_pad[rows], t_pad[rows], mask[rows]
         with self.timers("h2d"):
             f32 = np.float32
             inp = StepInputs(
@@ -295,7 +343,10 @@ class LioPipeline:
                 dyn=self.dyn,
             )
         with self.timers("step"):
-            out = lio_step(inp, self.map, self._static, self.grid)
+            if self._sharded_step is not None:
+                out = self._sharded_step(inp, self.map)
+            else:
+                out = lio_step(inp, self.map, self._static, self.grid)
 
         self.map = out.map
         self.x = out.x
@@ -376,9 +427,15 @@ class LioPipeline:
             if self._last_prune_t is None:
                 self._last_prune_t = t2
             elif t2 - self._last_prune_t >= cfg.map_prune_every:
+                center = self._to_dev(p_h.astype(np.float32))
                 with self.timers("prune"):
-                    self.map = prune(self.map, self._to_dev(p_h.astype(np.float32)),
-                                     cfg.map_prune_radius, self.grid)
+                    if self.mesh is not None and self.shard == "map":
+                        from ..parallel.map_sharding import local_grid, prune_sharded
+
+                        self.map = prune_sharded(self.map, center, cfg.map_prune_radius,
+                                                 local_grid(self.grid, self.mesh.size), self.mesh)
+                    else:
+                        self.map = prune(self.map, center, cfg.map_prune_radius, self.grid)
                 self._last_prune_t = t2
 
         rec = StepRecord(
@@ -401,6 +458,9 @@ class LioPipeline:
             delta_norm=float(tele[TEL_DELTA_NORM]),
         )
         self._result.records.append(rec)
+        if self.mesh is not None:
+            with self.timers("gather"):
+                out = self._gather_window(out)
         self._last_gpts_dev = (out.global_pts, out.global_mask)
         self._last_gds_dev = (out.global_ds, out.global_ds_mask)
         self._last_gds_idx_dev = out.global_ds_idx
@@ -436,6 +496,31 @@ class LioPipeline:
             ts = np.array([a.t for a in self._anchors])
             pub.states(ts, np.stack([a.p_h for a in self._anchors]),
                        np.stack([a.R_h for a in self._anchors]), rec.t)
+
+    def _gather_window(self, out):
+        """The whole window's outputs from the ranks' rows (one
+        all-gather): the clouds, their masks, the medoids' window indices
+        and the planes."""
+        from ..parallel.sharding import gather_rows
+
+        d = out.diag
+        g, gm, gd, gdm, gdi, nrm, cen, pv = gather_rows(self.mesh, [
+            out.global_pts, out.global_mask, out.global_ds, out.global_ds_mask,
+            out.global_ds_idx, d.plane_normals, d.plane_centroids, d.plane_valid])
+        return out._replace(global_pts=g, global_mask=gm, global_ds=gd, global_ds_mask=gdm,
+                            global_ds_idx=gdi,
+                            diag=d._replace(plane_normals=nrm, plane_centroids=cen,
+                                            plane_valid=pv))
+
+    def full_map(self) -> HashGridMap:
+        """The whole map: `self.map`, or with a map-sharded mesh the ranks'
+        shards joined in the JAX package's layout (table rows in rank order,
+        counters of shape (D,)).  A collective then: every rank calls it."""
+        if self.mesh is not None and self.shard == "map":
+            from ..parallel.map_sharding import gather_map
+
+            return gather_map(self.map, self.mesh)
+        return self.map
 
     def _on_record(self, rec: StepRecord) -> None:
         """Hook: called once per accepted update, after publishing, while

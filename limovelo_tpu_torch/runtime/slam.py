@@ -1,5 +1,5 @@
 """SLAM layer: LIO pipeline + keyframes + loop closure + pose-graph backend
-(port of `limovelo_tpu/runtime/slam.py`, single device).
+(port of `limovelo_tpu/runtime/slam.py`).
 
 `SlamPipeline` wraps `LioPipeline`:
 
@@ -15,6 +15,10 @@
 
 The live filter state is not rewritten on a closure: loop closures correct
 the trajectory product, not the real-time estimator.
+
+With a `mesh` the LIO steps are sharded (`LioPipeline`); the keyframes keep
+the gathered window, and every rank runs the same loop checks and the
+single-device pose graph on its own device, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -42,8 +46,11 @@ class SlamPipeline(LioPipeline):
         loop_min_index_gap: int = 20,
         loop_max_distance: float = 5.0,
         loop_max_rms: float = 0.15,
+        mesh=None,
+        shard: str = "points",
     ):
-        super().__init__(config, device=device, grid=grid, publisher=publisher)
+        super().__init__(config, device=device, grid=grid, publisher=publisher, mesh=mesh,
+                         shard=shard)
         self.keyframes = KeyframeStore(KeyframeSelector(kf_min_translation, kf_min_rotation_deg))
         self.loop_edges: List[Tuple[int, int]] = []
         # every registration attempt, accepted or not
@@ -97,19 +104,16 @@ class SlamPipeline(LioPipeline):
                 self._graph_loops.append((j, i, R, p))
 
     # ------------------------------------------------------------------
-    def optimized_trajectory(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Optimize the pose graph; returns the corrected (Rs, ps).
-
-        Loop edges pass a median-consensus gate first: a registration can
-        lock onto aliased geometry with a low RMS, and one such edge at loop
-        weight warps the whole graph.  Each edge's translation residual
-        against the odometry is compared with the edges' median: genuine
-        drift corrections share the odometry's systematic error, an alias is
-        an isolated outlier.  Rejected edges are counted in
-        `consensus_rejected`."""
+    def pose_graph(self) -> Tuple[PoseGraph, np.ndarray, np.ndarray]:
+        """The graph `optimized_trajectory` solves, with its initial poses:
+        the odometry chain and the loop edges that pass a median-consensus
+        gate.  A registration can lock onto aliased geometry with a low RMS,
+        and one such edge at loop weight warps the whole graph.  Each edge's
+        translation residual against the odometry is compared with the
+        edges' median: genuine drift corrections share the odometry's
+        systematic error, an alias is an isolated outlier.  Rejected edges
+        are counted in `consensus_rejected`."""
         frames = self.keyframes.frames
-        if len(frames) < 2:
-            return self.keyframes.positions(False), self.keyframes.positions(False)
         Rs = np.stack([f.R for f in frames]).astype(np.float32)
         ps = np.stack([f.p for f in frames]).astype(np.float32)
         loops = self._graph_loops
@@ -127,6 +131,15 @@ class SlamPipeline(LioPipeline):
         g.add_odometry_chain(Rs, ps)
         for (j, i, R, p) in loops:
             g.add_edge(j, i, R, p, weight=50.0)
+        return g, Rs, ps
+
+    def optimized_trajectory(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Optimize the pose graph (`pose_graph`) on the pipeline's device;
+        returns the corrected (Rs, ps)."""
+        frames = self.keyframes.frames
+        if len(frames) < 2:
+            return self.keyframes.positions(False), self.keyframes.positions(False)
+        g, Rs, ps = self.pose_graph()
         Rs2, ps2, _ = optimize_pose_graph(g, Rs, ps, iters=10, device=self.device)
         for f, R, p in zip(frames, Rs2, ps2):
             f.R_opt, f.p_opt = R, p

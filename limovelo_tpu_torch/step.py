@@ -112,21 +112,27 @@ def mapping_step(m: HashGridMap, anchor: NavState, anchor_t, anchor_a, anchor_w,
 
 
 def make_telemetry(enough, ds_count, diag: UpdateDiagnostics, x_new: NavState,
-                   m_new: HashGridMap, anchor_t) -> torch.Tensor:
-    """(TELEMETRY_DIM,) f32 — the per-step record the host reads (TEL_*)."""
+                   m_new: HashGridMap, anchor_t, map_mesh=None) -> torch.Tensor:
+    """(TELEMETRY_DIM,) f32 — the per-step record the host reads (TEL_*).
+
+    `map_mesh`: the map is sharded over this mesh's ranks (each holds its
+    own counters), so the three map counters are summed over the ranks and
+    the telemetry stays replicated."""
     f32 = torch.float32
 
     def s(v):
         return v.to(f32).reshape(1)
 
+    counters = torch.cat([s(m_new.num_points), s(m_new.num_buckets), s(m_new.dropped)])
+    if map_mesh is not None:
+        counters = map_mesh.psum(counters)
     return torch.cat([
         s(enough), s(ds_count), s(diag.num_matches), s(diag.mean_residual),
         s(diag.iterations),
         x_new.R.reshape(-1).to(f32), x_new.p.to(f32), x_new.v.to(f32),
         diag.eigenvalues.to(f32),
         so3.log(x_new.R_LI).to(f32), x_new.t_LI.to(f32),
-        s(m_new.num_points), s(m_new.num_buckets), s(m_new.dropped),
-        s(diag.delta_norm), s(anchor_t),
+        counters, s(diag.delta_norm), s(anchor_t),
     ])
 
 

@@ -1,6 +1,6 @@
 """Port parity of the CLI (`python -m limovelo_tpu_torch`): the `kitti` and
 `run` commands against the JAX package's `main` on the same files, the
-per-command profile, the multi-device flags, the viz subcommands, `--profile`,
+per-command profile, the multi-device flags' refusals, the viz subcommands, `--profile`,
 and the evaluation writers.
 
 The fixtures are small (a 12 × 200 LiDAR, 2 s of a 12 m room on a 2.5 m
@@ -150,10 +150,22 @@ def test_kitti_command_defaults_to_the_kitti_profile(monkeypatch, kitti_drive):
 
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--shard", "points"]])
-def test_multi_device_flags_raise(kitti_drive, flag):
+def test_multi_device_flags_raise(kitti_drive, flag, monkeypatch):
+    """The multi-device flags run (tests/test_torch_parallel.py), and keep
+    the JAX package's refusals, raised in the spawned ranks: a mesh with
+    offline mapping, and a point bucket that does not divide across the
+    ranks (2048 over 3)."""
     _, drive, cfg, _ = kitti_drive
-    with pytest.raises(NotImplementedError, match="multi-device.*item 1"):
-        main(["kitti", "--drive", drive, "--config", cfg, "--device", "cpu", *flag])
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    argv = ["kitti", "--drive", drive, "--config", cfg, "--device", "cpu", "--max-scans", "6"]
+    if flag[0] == "--devices":
+        argv += [*flag, "--mapping-online", "false"]
+        match = "mapping 'online' or 'none'"
+    else:
+        argv += [*flag, "--devices", "3"]
+        match = "must divide across the 3-rank mesh"
+    with pytest.raises(torch.multiprocessing.ProcessRaisedException, match=match):
+        main(argv)
 
 
 def test_viz_and_profile_outputs(kitti_drive, tmp_path):

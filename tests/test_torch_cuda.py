@@ -284,3 +284,58 @@ def test_cli_kitti_on_card_launches_the_kernel(cuda_device, tmp_path, monkeypatc
     assert gk.knn_grouped.launches - before >= len(traj) >= 12
     ate, _ = ate_rmse(traj[:, 0], traj[:, 1:4], sim.gt_t, sim.gt_R, sim.gt_p)
     assert ate < 0.05, ate
+
+
+def _two_rooms(n: int, seed: int = 0) -> np.ndarray:
+    """A window whose first and second halves lie in two rooms 0.8 m apart
+    (a floor and a wall each): with two ranks no voxel spans the shards, so
+    the per-shard voxel dedup is the single device's, and each half fills
+    few enough coarse voxels that no query overflows the per-shard g_max."""
+    rng = np.random.default_rng(seed)
+    halves = []
+    for sign in (-1.0, 1.0):
+        m = n // 2
+        x = sign * rng.uniform(0.4, 4.0, m)
+        y = rng.uniform(-2.0, 2.0, m)
+        z = np.full(m, -1.5)
+        wall = rng.random(m) < 0.4
+        y[wall], z[wall] = 2.0, rng.uniform(-1.5, 1.0, wall.sum())
+        halves.append(np.stack([x, y, z], -1) + rng.normal(0, 0.01, (m, 3)))
+    return np.concatenate(halves).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_point_sharded_step_on_card_matches_single(cuda_device, tmp_path):
+    """Two ranks on the one card (gloo, collectives staged through the
+    host) run two chained point-sharded steps with the grouped backend, the
+    second against the map the first built: both ranks launch the grouped
+    kernel in each step, hold the state on the card, and match the
+    single-device card step (p to 1e-5) on a window whose shards share no
+    voxel (`_two_rooms`)."""
+    from limovelo_tpu_torch import DEFAULT
+    from limovelo_tpu_torch.parallel import multihost as mh
+    from limovelo_tpu_torch.step import lio_step
+
+    from torch_parallel_ranks import example_inputs, run_cases
+
+    cfg = DEFAULT.replace(real_time=False, min_dist=0.5, downsample_prec=0.3,
+                          map_table_size=1 << 14, knn_rings=1, knn_backend="grouped")
+    pts = _two_rooms(2048)
+    runs = {"s": ("card_step", dict(cfg=cfg, n_pts=2048, n_imu=64, pts=pts))}
+    ranks = [r["s"] for r in mh.spawn(run_cases, 2, args=(runs,), device="cuda",
+                                      backend="gloo", workdir=str(tmp_path), timeout_s=300)]
+    for r in ranks:
+        assert "error" not in r, r.get("error")
+        assert r["mesh"]["backend"] == "gloo" and r["mesh"]["host_staging"]
+        assert all(n >= 1 for n in r["launches"]), r["launches"]
+        assert all(s["device"].startswith("cuda") for s in r["steps"])
+    grid = hg.GridParams.from_config(cfg)
+    inp = example_inputs(cfg, 2048, 64, cuda_device, pts)
+    m = hg.make_map(grid, device=cuda_device)
+    for k in range(2):
+        out = lio_step(inp, m, cfg.static(), grid)
+        m = out.map
+        for r in ranks:
+            np.testing.assert_allclose(r["steps"][k]["p"], out.x.p.cpu().numpy(), atol=1e-5)
+            assert r["steps"][k]["num_matches"] == int(out.diag.num_matches)
+    assert ranks[0]["steps"][1]["num_matches"] > 0

@@ -1,8 +1,9 @@
 """Port parity: deskew path integration, per-point compensation (padding and
-superset invariance included) and the medoid voxel downsample, against the
-JAX package on the CPU."""
+superset invariance included), the medoid voxel downsample and the
+range-banded onion downsample, against the JAX package on the CPU."""
 
 import numpy as np
+import pytest
 import torch
 import jax
 import jax.numpy as jnp
@@ -13,11 +14,12 @@ from limovelo_tpu.deskew.compensate import compensate as j_compensate
 from limovelo_tpu.deskew.compensate import state_at as j_state_at
 from limovelo_tpu.filter.process import ImuWindow as JImu
 from limovelo_tpu.geometry import state as jst
+from limovelo_tpu.ops.voxel import onion_downsample as jonion
 from limovelo_tpu.ops.voxel import voxel_downsample as jvoxel
 from limovelo_tpu_torch import interop
 from limovelo_tpu_torch.deskew import compensate as dk
 from limovelo_tpu_torch.filter.process import ImuWindow
-from limovelo_tpu_torch.ops.voxel import voxel_downsample
+from limovelo_tpu_torch.ops.voxel import onion_downsample, voxel_downsample
 
 torch.set_num_threads(1)
 
@@ -155,3 +157,30 @@ def test_voxel_downsample_identical(rng):
         np.testing.assert_array_equal(dt.mask.numpy(), np.asarray(dj.mask))
         np.testing.assert_array_equal(dt.idx.numpy(), np.asarray(dj.idx))
         np.testing.assert_array_equal(dt.pts.numpy(), np.asarray(dj.pts))
+
+
+def _onion_cases(rng):
+    """tests/test_ops.py's cases: points in every band with a 90 % mask, and
+    points all beyond the last band."""
+    n = 1024
+    dirs = rng.normal(size=(n, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    pts = (dirs * rng.uniform(0.5, 60, (n, 1))).astype(np.float32)
+    far = rng.normal(size=(64, 3)).astype(np.float32) * 0.01
+    far[:, 0] += 60.0
+    return [(pts, rng.random(n) < 0.9), (far, np.ones(64, bool))]
+
+
+@pytest.mark.parametrize("rate", [1, 2, 4, 8, 32])
+def test_onion_downsample_identical(rng, rate):
+    """The range-banded decimation against the JAX package's: the same
+    compacted points, mask, count and input index, exactly (a selection and
+    a stable compaction; the range is rounded as the JAX code rounds it)."""
+    for pts, mask in _onion_cases(rng):
+        dj = jonion(jnp.asarray(pts), jnp.asarray(mask), rate)
+        dt = onion_downsample(T(pts), T(mask), rate)
+        assert int(dt.count) == int(dj.count) > 0
+        np.testing.assert_array_equal(dt.mask.numpy(), np.asarray(dj.mask))
+        np.testing.assert_array_equal(dt.idx.numpy(), np.asarray(dj.idx))
+        np.testing.assert_array_equal(dt.pts.numpy(), np.asarray(dj.pts))
+    assert int(onion_downsample(T(_onion_cases(rng)[1][0]), T(np.ones(64, bool)), rate).count) == 64

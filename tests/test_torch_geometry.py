@@ -137,3 +137,19 @@ def test_chart_blocks_match_jax_autodiff(rng):
         want = jax.jacfwd(lambda dd: js2.boxminus(js2.boxplus(jnp.asarray(gi), dd),
                                                    jnp.asarray(g0i)))(jnp.zeros(2, jnp.float32))
         close(s2.transport(T(gi), T(g0i)), want, atol=1e-5)
+
+
+def test_so3_left_jacobians_and_normalize(rng):
+    """`left_jacobian`, `left_jacobian_inv` and `normalize` against the JAX
+    package's, at random angles and within the Taylor branch (θ < 1e-4);
+    J_l·J_l⁻¹ = I and a normalized perturbed rotation is orthonormal."""
+    w = np.concatenate([rng.normal(size=(64, 3)), rng.normal(size=(8, 3)) * 1e-6,
+                        np.zeros((1, 3))]).astype(np.float32)
+    close(so3.left_jacobian(T(w)), jso3.left_jacobian(jnp.asarray(w)), atol=1e-5)
+    close(so3.left_jacobian_inv(T(w)), jso3.left_jacobian_inv(jnp.asarray(w)), atol=1e-5)
+    eye = np.broadcast_to(np.eye(3, dtype=np.float32), (len(w), 3, 3))
+    close(so3.left_jacobian(T(w)) @ so3.left_jacobian_inv(T(w)), eye, atol=1e-4)
+    R = np.asarray(jso3.exp(jnp.asarray(w))) + rng.normal(0, 1e-3, (len(w), 3, 3)).astype(np.float32)
+    Rn = so3.normalize(T(R))
+    close(Rn, jso3.normalize(jnp.asarray(R)), atol=1e-6)
+    close(Rn.transpose(-1, -2) @ Rn, eye, atol=1e-5)

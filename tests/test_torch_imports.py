@@ -75,7 +75,7 @@ def test_entry_points_default_to_the_card():
 def test_lifecycle_and_slam_entry_points_default_to_the_card(tmp_path):
     """The lifecycle and SLAM entry points take `device` too, default
     "cuda", and raise without a card; the CLI takes `--device` (default
-    "cuda") and its multi-device flags raise, naming the ROADMAP item."""
+    "cuda"), its multi-device flags included."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     import numpy as np
@@ -104,6 +104,36 @@ def test_lifecycle_and_slam_entry_points_default_to_the_card(tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["sim", "--world", "room", "--duration", "0.1"])
-    for flag in (["--devices", "2"], ["--shard", "map"]):
-        with pytest.raises(NotImplementedError, match="multi-device.*item 1"):
-            main(["sim", "--device", "cpu", *flag])
+    for flag in (["--devices", "2"], ["--devices", "2", "--shard", "map"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["sim", "--world", "room", "--duration", "0.1", *flag])
+
+
+def test_parallel_entry_points_default_to_the_card(tmp_path):
+    """`parallel/` imports no JAX (the tests above walk it); its entry
+    points take the card unless asked for the CPU: the spawn helper and
+    `make_mesh` raise without one, a mesh on the CPU carries
+    `LioPipeline(mesh=...)` there, and nccl refuses the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    import torch.distributed as dist
+
+    from limovelo_tpu_torch.parallel import multihost as mh
+    from limovelo_tpu_torch.parallel.sharding import Mesh, make_mesh
+
+    assert "limovelo_tpu_torch.parallel.map_sharding" in _modules()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mh.spawn(print, 2)
+    with pytest.raises(ValueError, match="nccl backend needs a CUDA device"):
+        Mesh(0, 1, "cpu", "nccl")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()
+        mesh = make_mesh("cpu")
+        assert (mesh.rank, mesh.size, mesh.backend, mesh.host_staging) == (0, 1, "gloo", False)
+        assert LioPipeline(DEFAULT, mesh=mesh).device.type == "cpu"
+        assert mh.global_mesh("cpu").device.type == "cpu"
+    finally:
+        dist.destroy_process_group()
