@@ -409,12 +409,11 @@ def cast_views(world, sim, fractions):
 
 class counted_windows:
     """Every LioPipeline window run inside the block, counted, whichever
-    code built the pipeline (the CLI phases': the CLI): the launch count is
-    set to 0 on entry and read on exit; per window (launches, accepted,
-    seconds, raw points)."""
+    code built the pipeline (the CLI phases': the CLI): per window
+    (launches, accepted, seconds, raw points), the launches read from the
+    pipeline's recorder; `launches`, their sum."""
 
     def __enter__(self):
-        from limovelo_tpu_torch.ops.cuda import knn
         from limovelo_tpu_torch.runtime.pipeline import LioPipeline
 
         self.windows, self._step = [], LioPipeline.step_window
@@ -422,22 +421,20 @@ class counted_windows:
 
         def counted(pipe, t1, t2):
             n = len(pipe.accum.get_points(t1, t2)[0])
-            before, t0 = knn.knn_grouped.launches, time.perf_counter()
+            before, t0 = pipe.timers.counters["knn_grouped.launches"], time.perf_counter()
             rec = step(pipe, t1, t2)
-            windows.append((knn.knn_grouped.launches - before, rec is not None,
-                            time.perf_counter() - t0, n))
+            windows.append((pipe.timers.counters["knn_grouped.launches"] - before,
+                            rec is not None, time.perf_counter() - t0, n))
             return rec
 
         LioPipeline.step_window = counted
-        knn.knn_grouped.launches = 0
         return self
 
     def __exit__(self, *exc):
-        from limovelo_tpu_torch.ops.cuda import knn
         from limovelo_tpu_torch.runtime.pipeline import LioPipeline
 
         LioPipeline.step_window = self._step
-        self.launches = knn.knn_grouped.launches
+        self.launches = sum(w[0] for w in self.windows)
         return False
 
     def check_every_window(self, what: str):
@@ -807,12 +804,12 @@ def shard_rank(mesh, sim, runs):
     """One spawned rank of the shard phases.  `runs`: (name, what, arg);
     what "points"/"map" replays the main stream through
     LioPipeline(main_config(), mesh=mesh, shard=what), counting this rank's
-    grouped-kernel launches, seconds and collective seconds per window;
+    grouped-kernel launches, seconds and collective seconds per window
+    (the host time of its `mesh.*` spans);
     "posegraph" solves arg = (graph, Rs, ps) edge-sharded."""
     from limovelo_tpu_torch.graph import optimize_pose_graph_sharded
     from limovelo_tpu_torch.io.simulate import replay_into
     from limovelo_tpu_torch.mapping.hashgrid import EMPTY_KEY, TOMBSTONE_KEY
-    from limovelo_tpu_torch.ops.cuda import knn
     from limovelo_tpu_torch.parallel.map_sharding import owner_of
     from limovelo_tpu_torch.runtime.pipeline import LioPipeline
 
@@ -826,16 +823,21 @@ def shard_rank(mesh, sim, runs):
             out[name] = dict(Rs=Rs, ps=ps, costs=costs, seconds=time.perf_counter() - t0)
             continue
         pipe = LioPipeline(main_config(), mesh=mesh, shard=what)
+        pipe.timers.enable()    # the collectives' spans
         step, windows = pipe.step_window, []
 
         def counted(t1, t2, pipe=pipe, step=step, windows=windows):
             n = len(pipe.accum.get_points(t1, t2)[0])
             real = np.clip(n - mesh.rank * pipe.config.bucket_for(
                 max(n, 1), pipe.config.point_buckets) // mesh.size, 0, None)
-            before, c0, ts = knn.knn_grouped.launches, mesh.stats["seconds"], time.perf_counter()
+            timers = pipe.timers
+            before, s0 = timers.counters["knn_grouped.launches"], len(timers.spans)
+            ts = time.perf_counter()
             rec = step(t1, t2)
-            windows.append((knn.knn_grouped.launches - before, rec is not None,
-                            time.perf_counter() - ts, mesh.stats["seconds"] - c0, n, real))
+            coll_s = sum(s.end - s.start for s in timers.spans[s0:]
+                         if s.name.startswith("mesh.")) / 1e9
+            windows.append((timers.counters["knn_grouped.launches"] - before, rec is not None,
+                            time.perf_counter() - ts, coll_s, n, real))
             return rec
 
         pipe.step_window = counted

@@ -20,6 +20,7 @@ import torch
 from ..filter.process import ImuWindow, masked_dt, rotation_chain
 from ..geometry import so3
 from ..geometry.state import NavState
+from ..runtime import profiling
 
 
 class PathNodes(NamedTuple):
@@ -110,9 +111,12 @@ def state_at(path: PathNodes, anchor: NavState, t) -> Tuple[torch.Tensor, torch.
     """Pose (R, p, v) at scalar time t: bracketing node + residual integration."""
     t = torch.as_tensor(t, dtype=path.t.dtype, device=path.t.device)
     s = _bracket(path.t, t)
-    dt = torch.clamp(t - path.t[s], min=0.0)
-    return _integrate(path.R[s], path.p[s], path.v[s], anchor.bg, anchor.ba, anchor.g,
-                      path.a[s], path.w[s], dt)
+    # an index by the 0-dim `s` reads it to the host, once per indexing
+    with profiling.blocking("sync.state_at", 6):
+        t_s, R_s, p_s, v_s, a_s, w_s = (path.t[s], path.R[s], path.p[s], path.v[s],
+                                        path.a[s], path.w[s])
+    dt = torch.clamp(t - t_s, min=0.0)
+    return _integrate(R_s, p_s, v_s, anchor.bg, anchor.ba, anchor.g, a_s, w_s, dt)
 
 
 def compensate(path: PathNodes, anchor: NavState, t2, pts: torch.Tensor,

@@ -18,8 +18,9 @@ H rows (N×12, the remaining 11 columns zero):
 The 23×23 prior/solve chain runs in float64 on the device
 (`StaticConfig.solve_dtype`); HᵀH, L and dx_prior stay float32.  Every
 Gauss-Newton iteration runs (a converged iterate is frozen, as in the JAX
-package), so the loop needs no host round trip; the one host read is the
-"auto" match-refresh decision.
+package), so the loop needs no host round trip of its own; the host reads
+the "auto" match-refresh decision (`sync.refresh`), and each eigensolve on
+the card waits for the device (`sync.eigh`).
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ from ..geometry import s2, so3
 from ..geometry.state import ERROR_DIM, EXT_R, GRAV, ROT, NavState, boxminus, boxplus, select
 from ..mapping.hashgrid import GridParams, HashGridMap, knn
 from ..ops.planes import fit_planes, point_plane_distance
+from ..runtime import profiling
+from ..runtime.profiling import span
+
+#: blocking reads of one `torch.linalg.eigh` on a CUDA tensor: cuSOLVER's
+#: syevd and the check of its info each end in a stream synchronisation
+#: (counted in a CUDA trace on an H100, torch 2.11)
+EIGH_READS = 2
 
 
 class UpdateDiagnostics(NamedTuple):
@@ -59,10 +67,15 @@ def observation_matrix(x: NavState, pts_lidar: torch.Tensor, normals: torch.Tens
     return torch.cat([normals, A, torch.zeros_like(normals).repeat(1, 2)], dim=-1)
 
 
+def _eigh(S: torch.Tensor):
+    with profiling.blocking("sync.eigh", EIGH_READS):
+        return torch.linalg.eigh(S)
+
+
 def _eigh_spd(S: torch.Tensor):
     """Eigendecomposition of a symmetric PSD matrix with a relative floor on
     the eigenvalues (rounding noise can produce tiny negatives)."""
-    lam, V = torch.linalg.eigh(S)
+    lam, V = _eigh(S)
     lam = torch.maximum(lam, 1e-12 * torch.amax(torch.abs(lam)))
     return lam, V
 
@@ -104,25 +117,28 @@ def _search(x: NavState, m: HashGridMap, pts_lidar, grid: GridParams, static_cfg
     """The KNN half of the match: place globally, query the map (through
     `knn_fn`, with `mapping.hashgrid.knn`'s signature, when given).
     Returns (p_glob, neighbors (N,k,3), sq (N,k), nb_valid (N,k))."""
-    p_glob = _place_global(x, pts_lidar)
-    if knn_fn is not None:
-        nb, sq, nb_valid = knn_fn(m, p_glob, grid, k=static_cfg.NUM_MATCH_POINTS,
-                                  rings=static_cfg.knn_rings,
-                                  max_buckets=static_cfg.knn_max_buckets)
-    elif static_cfg.knn_backend == "grouped":
-        from ..ops.cuda.knn import knn_grouped
+    profiling.count("update.searches")
+    with span("update.search"):
+        p_glob = _place_global(x, pts_lidar)
+        if knn_fn is not None:
+            nb, sq, nb_valid = knn_fn(m, p_glob, grid, k=static_cfg.NUM_MATCH_POINTS,
+                                      rings=static_cfg.knn_rings,
+                                      max_buckets=static_cfg.knn_max_buckets)
+        elif static_cfg.knn_backend == "grouped":
+            from ..ops.cuda.knn import knn_grouped
 
-        nb, sq, nb_valid = knn_grouped(m, p_glob, grid, k=static_cfg.NUM_MATCH_POINTS)
-    else:
-        nb, sq, nb_valid = knn(m, p_glob, grid, k=static_cfg.NUM_MATCH_POINTS,
-                               rings=static_cfg.knn_rings,
-                               max_buckets=static_cfg.knn_max_buckets)
+            nb, sq, nb_valid = knn_grouped(m, p_glob, grid, k=static_cfg.NUM_MATCH_POINTS)
+        else:
+            nb, sq, nb_valid = knn(m, p_glob, grid, k=static_cfg.NUM_MATCH_POINTS,
+                                   rings=static_cfg.knn_rings,
+                                   max_buckets=static_cfg.knn_max_buckets)
     return p_glob, nb, sq, nb_valid
 
 
 def _fit(nb, sq, nb_valid, dyn):
-    return fit_planes(nb, sq, nb_valid, dyn.MAX_DIST_PLANE, dyn.PLANES_THRESHOLD,
-                      planarity=dyn.plane_planarity, linearity=dyn.plane_linearity)
+    with span("update.fit"):
+        return fit_planes(nb, sq, nb_valid, dyn.MAX_DIST_PLANE, dyn.PLANES_THRESHOLD,
+                          planarity=dyn.plane_planarity, linearity=dyn.plane_linearity)
 
 
 def _gate(p_glob, fit, mask, dyn):
@@ -206,66 +222,70 @@ def iterated_update(x0: NavState, P: torch.Tensor, m: HashGridMap, pts_lidar: to
     it = torch.zeros((), dtype=torch.int32, device=dev)
     out = None
     for _ in range(static_cfg.MAX_NUM_ITERS):
-        if mode == "rematch":
-            r, fit, valid = _match(x, m, pts_lidar, mask, grid, static_cfg, dyn, knn_fn)
-        else:
-            if mode == "auto":
-                # a host decision: the search only runs when it is needed
-                need = _displacement_bound(x, search_state[0], max_range) > dyn.match_refresh_m
-                if bool(need):
-                    _, nb, sq, nbv = _search(x, m, pts_lidar, grid, static_cfg, knn_fn)
-                    search_state = (x, nb, nbv, _fit(nb, sq, nbv, dyn))
-            _, nb, nbv, fit = search_state
-            r, valid = _match_frozen(x, pts_lidar, nb, nbv, fit, mask, dyn)
-        w = valid.to(dtype)
-        if dyn.huber_delta > 0.0:   # robust IRLS weight; 0 = least squares
-            w = w * torch.clamp(dyn.huber_delta / torch.clamp(torch.abs(r), min=1e-9), max=1.0)
-        H = observation_matrix(x, pts_lidar, fit.normal, static_cfg.estimate_extrinsics)
-        Hw = H * w[:, None]
-        HtH = Hw.T @ H                                     # (12,12)
-        Htr = Hw.T @ (r * w)                               # (12,)
-        if mesh is not None:                               # one all-reduce for both
-            both = mesh.psum(torch.cat([HtH, Htr[:, None]], dim=1))
-            HtH, Htr = both[:, :12], both[:, 12]
+        with span("update.iteration"):
+            if mode == "rematch":
+                r, fit, valid = _match(x, m, pts_lidar, mask, grid, static_cfg, dyn, knn_fn)
+            else:
+                if mode == "auto":
+                    # a host decision: the search only runs when it is needed
+                    moved = _displacement_bound(x, search_state[0], max_range)
+                    with profiling.blocking("sync.refresh"):
+                        need = bool(moved > dyn.match_refresh_m)
+                    if need:
+                        _, nb, sq, nbv = _search(x, m, pts_lidar, grid, static_cfg, knn_fn)
+                        search_state = (x, nb, nbv, _fit(nb, sq, nbv, dyn))
+                _, nb, nbv, fit = search_state
+                r, valid = _match_frozen(x, pts_lidar, nb, nbv, fit, mask, dyn)
+            w = valid.to(dtype)
+            if dyn.huber_delta > 0.0:   # robust IRLS weight; 0 = least squares
+                w = w * torch.clamp(dyn.huber_delta / torch.clamp(torch.abs(r), min=1e-9), max=1.0)
+            H = observation_matrix(x, pts_lidar, fit.normal, static_cfg.estimate_extrinsics)
+            Hw = H * w[:, None]
+            HtH = Hw.T @ H                                     # (12,12)
+            Htr = Hw.T @ (r * w)                               # (12,)
+            if mesh is not None:                               # one all-reduce for both
+                both = mesh.psum(torch.cat([HtH, Htr[:, None]], dim=1))
+                HtH, Htr = both[:, :12], both[:, 12]
 
-        L = chart_transport(x, x0, dtype)
-        dx_prior = boxminus(x, x0)
-        L_s = L.to(solve_t)
-        LtPinv = L_s.T @ P_inv
-        S = torch.zeros((ERROR_DIM, ERROR_DIM), dtype=solve_t, device=dev)
-        S[:12, :12] = HtH.to(solve_t) * r_inv
-        S = S + LtPinv @ L_s
-        g_vec = torch.zeros(ERROR_DIM, dtype=solve_t, device=dev)
-        g_vec[:12] = Htr.to(solve_t) * r_inv
-        rhs = -(g_vec + LtPinv @ dx_prior.to(solve_t))
-        delta = _solve_spd(S, rhs).to(dtype)
+            L = chart_transport(x, x0, dtype)
+            dx_prior = boxminus(x, x0)
+            L_s = L.to(solve_t)
+            LtPinv = L_s.T @ P_inv
+            S = torch.zeros((ERROR_DIM, ERROR_DIM), dtype=solve_t, device=dev)
+            S[:12, :12] = HtH.to(solve_t) * r_inv
+            S = S + LtPinv @ L_s
+            g_vec = torch.zeros(ERROR_DIM, dtype=solve_t, device=dev)
+            g_vec[:12] = Htr.to(solve_t) * r_inv
+            rhs = -(g_vec + LtPinv @ dx_prior.to(solve_t))
+            delta = _solve_spd(S, rhs).to(dtype)
 
-        # degeneracy gating on the HᵀH spectrum: drop the update components
-        # along eigen-directions weaker than the threshold
-        if static_cfg.compute_degeneracy:
-            eigval, eigvec = torch.linalg.eigh(HtH)
-            strong = (eigval >= dyn.degeneracy_threshold).to(dtype)
-            d12 = eigvec.T @ delta[:12]
-            delta = torch.cat([eigvec @ (d12 * strong), delta[12:]])
-        else:
-            eigval = torch.zeros(12, dtype=dtype, device=dev)
+            # degeneracy gating on the HᵀH spectrum: drop the update components
+            # along eigen-directions weaker than the threshold
+            if static_cfg.compute_degeneracy:
+                eigval, eigvec = _eigh(HtH)
+                strong = (eigval >= dyn.degeneracy_threshold).to(dtype)
+                d12 = eigvec.T @ delta[:12]
+                delta = torch.cat([eigvec @ (d12 * strong), delta[12:]])
+            else:
+                eigval = torch.zeros(12, dtype=dtype, device=dev)
 
-        x = select(done, x, boxplus(x, delta))
-        max_d = torch.amax(torch.abs(delta))
-        it = it + (~done).to(torch.int32)
-        done = done | (max_d < dyn.LIMITS)
-        # the last iteration's match is the final iterate's (once done the
-        # state freezes but the match still runs at it): P⁺ and the
-        # diagnostics reuse it
-        out = (valid, r, eigval, max_d, HtH, fit.normal, fit.centroid)
+            x = select(done, x, boxplus(x, delta))
+            max_d = torch.amax(torch.abs(delta))
+            it = it + (~done).to(torch.int32)
+            done = done | (max_d < dyn.LIMITS)
+            # the last iteration's match is the final iterate's (once done the
+            # state freezes but the match still runs at it): P⁺ and the
+            # diagnostics reuse it
+            out = (valid, r, eigval, max_d, HtH, fit.normal, fit.centroid)
 
     valid, r, eigval_last, max_d_last, HtH, normals_last, centroids_last = out
     w = valid.to(dtype)
-    L_s = chart_transport(x, x0, dtype).to(solve_t)
-    S = torch.zeros((ERROR_DIM, ERROR_DIM), dtype=solve_t, device=dev)
-    S[:12, :12] = HtH.to(solve_t) * r_inv
-    P_new = _inv_spd(S + L_s.T @ P_inv @ L_s)
-    P_new = (0.5 * (P_new + P_new.T)).to(dtype)
+    with span("update.covariance"):
+        L_s = chart_transport(x, x0, dtype).to(solve_t)
+        S = torch.zeros((ERROR_DIM, ERROR_DIM), dtype=solve_t, device=dev)
+        S[:12, :12] = HtH.to(solve_t) * r_inv
+        P_new = _inv_spd(S + L_s.T @ P_inv @ L_s)
+        P_new = (0.5 * (P_new + P_new.T)).to(dtype)
 
     n_matches = torch.sum(valid).to(torch.int32)
     res_sum = torch.sum(torch.abs(r) * w)

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..native import process_scan
+from ..runtime import profiling
 
 
 def decode_scan(
@@ -50,29 +51,30 @@ def decode_scan(
     `intensity` (velodyne/hesai `intensity`, ouster `reflectivity` —
     Point.cpp:172-175) rides through the filter and sort; when given, a
     3-tuple is returned."""
-    lidar_type = (lidar_type or config.LiDAR_type).lower()
-    xyz = np.asarray(xyz, np.float32).reshape(-1, 3)
-    n = len(xyz)
+    with profiling.span("ingest.decode"):
+        lidar_type = (lidar_type or config.LiDAR_type).lower()
+        xyz = np.asarray(xyz, np.float32).reshape(-1, 3)
+        n = len(xyz)
 
-    if time_field is None:
-        t_abs = np.zeros(n, np.float64)  # all-zero ⇒ missing-time fallback
-    elif lidar_type == "velodyne":
-        rel = np.asarray(time_field, np.float64)
-        if not config.offset_beginning:
-            rel = rel + config.full_rotation_time
-        t_abs = _rebase_relative(config, rel, header_stamp)
-    elif lidar_type == "ouster":
-        rel = np.asarray(time_field, np.float64) * 1e-9
-        if not config.offset_beginning:
-            rel = rel + config.full_rotation_time
-        t_abs = _rebase_relative(config, rel, header_stamp)
-    elif lidar_type in ("hesai", "custom"):
-        t_abs = np.asarray(time_field, np.float64)
-    else:
-        raise ValueError(f"Unknown LiDAR type {lidar_type!r}! Check your config.")
+        if time_field is None:
+            t_abs = np.zeros(n, np.float64)  # all-zero ⇒ missing-time fallback
+        elif lidar_type == "velodyne":
+            rel = np.asarray(time_field, np.float64)
+            if not config.offset_beginning:
+                rel = rel + config.full_rotation_time
+            t_abs = _rebase_relative(config, rel, header_stamp)
+        elif lidar_type == "ouster":
+            rel = np.asarray(time_field, np.float64) * 1e-9
+            if not config.offset_beginning:
+                rel = rel + config.full_rotation_time
+            t_abs = _rebase_relative(config, rel, header_stamp)
+        elif lidar_type in ("hesai", "custom"):
+            t_abs = np.asarray(time_field, np.float64)
+        else:
+            raise ValueError(f"Unknown LiDAR type {lidar_type!r}! Check your config.")
 
-    return process_scan(xyz, t_abs, config.downsample_rate, config.min_dist,
-                        intensity=intensity)
+        return process_scan(xyz, t_abs, config.downsample_rate, config.min_dist,
+                            intensity=intensity)
 
 
 def _rebase_relative(config, rel: np.ndarray, header_stamp: float) -> np.ndarray:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.voxel import lexsort, sq_norm3
+from ..runtime import profiling
 
 EMPTY_KEY = -(2 ** 31)         # never-used bucket (stops probes)
 TOMBSTONE_KEY = -(2 ** 31) + 1  # pruned bucket: probes continue past it
@@ -165,8 +166,10 @@ def _find_or_claim_buckets(m: HashGridMap, coarse, active, params: GridParams):
     spare = torch.full_like(row_ids, T)
 
     for _ in range(2 * params.probe_length):
-        if not bool(pending.any()):
-            break
+        with profiling.blocking("sync.claim_round"):
+            if not bool(pending.any()):
+                break
+        profiling.count("hashgrid.claim_rounds")
         cand = (h0 + off) % T
         stored = keys[cand]                                 # (N,3)
         is_match = torch.all(stored == coarse, dim=-1) & pending
@@ -194,21 +197,24 @@ def _lookup_buckets(keys, coarse, params: GridParams, dtype=torch.int64):
     """Read-only probe: coarse coords (..., 3) → bucket index or -1, as
     `dtype` (int32 for the grouped kernel).  Stops once every chain has
     resolved."""
-    T = params.table_size
-    h0 = _hash_coords(coarse, T).to(dtype)
-    bucket = torch.full(coarse.shape[:-1], -1, dtype=dtype, device=coarse.device)
-    done = torch.zeros(coarse.shape[:-1], dtype=torch.bool, device=coarse.device)
-    for i in range(params.probe_length):
-        if bool(done.all()):
-            break
-        cand = (h0 + i) % T
-        stored = keys[cand]
-        is_match = torch.all(stored == coarse, dim=-1)
-        # only a never-used bucket terminates a chain; tombstones are probed past
-        is_empty = _is_key(stored, EMPTY_KEY)
-        bucket = torch.where(is_match & ~done, cand, bucket)
-        done = done | is_match | is_empty
-    return bucket
+    with profiling.span("hashgrid.lookup"):
+        T = params.table_size
+        h0 = _hash_coords(coarse, T).to(dtype)
+        bucket = torch.full(coarse.shape[:-1], -1, dtype=dtype, device=coarse.device)
+        done = torch.zeros(coarse.shape[:-1], dtype=torch.bool, device=coarse.device)
+        for i in range(params.probe_length):
+            with profiling.blocking("sync.lookup_round"):
+                if bool(done.all()):
+                    break
+            profiling.count("hashgrid.lookup_rounds")
+            cand = (h0 + i) % T
+            stored = keys[cand]
+            is_match = torch.all(stored == coarse, dim=-1)
+            # only a never-used bucket terminates a chain; tombstones are probed past
+            is_empty = _is_key(stored, EMPTY_KEY)
+            bucket = torch.where(is_match & ~done, cand, bucket)
+            done = done | is_match | is_empty
+        return bucket
 
 
 def insert(m: HashGridMap, pts, mask, params: GridParams, downsample: bool = True) -> HashGridMap:
@@ -225,7 +231,8 @@ def insert(m: HashGridMap, pts, mask, params: GridParams, downsample: bool = Tru
     slot = slot.to(torch.int64)
 
     was_free = _is_key(m.keys, EMPTY_KEY) | _is_key(m.keys, TOMBSTONE_KEY)
-    keys, bucket, found = _find_or_claim_buckets(m, coarse, keep, params)
+    with profiling.span("hashgrid.claim"):
+        keys, bucket, found = _find_or_claim_buckets(m, coarse, keep, params)
     now_free = _is_key(keys, EMPTY_KEY) | _is_key(keys, TOMBSTONE_KEY)
     newly_claimed = torch.sum(was_free & ~now_free)
 
@@ -233,7 +240,8 @@ def insert(m: HashGridMap, pts, mask, params: GridParams, downsample: bool = Tru
     safe_bucket = torch.where(found, bucket, 0)
     incumbent = m.cell_d2[safe_bucket, slot]
     write = found & (d2 < incumbent)
-    sel = torch.nonzero(write).squeeze(1)
+    with profiling.blocking("sync.insert_nonzero"):
+        sel = torch.nonzero(write).squeeze(1)
     m.pts.index_put_((bucket[sel], slot[sel]), pts[sel])
     m.cell_d2.index_put_((bucket[sel], slot[sel]), d2[sel])
 
@@ -305,7 +313,8 @@ def knn(m: HashGridMap, queries, params: GridParams, k: int = 5, rings: int = 1,
     AABB lower bound (see `nearest_buckets`)."""
     N = queries.shape[0]
     S = params.slots
-    offs = torch.as_tensor(_neighbor_offsets(rings), device=queries.device)
+    with profiling.blocking("sync.offsets"):
+        offs = torch.as_tensor(_neighbor_offsets(rings), device=queries.device)
     V = offs.shape[0]
 
     fine = _fine_coords(queries, params.voxel_size)

@@ -50,6 +50,7 @@ from ...mapping.hashgrid import (
     _neighbor_offsets,
     nearest_buckets,
 )
+from ...runtime import profiling
 from ..voxel import lexsort
 
 GROUP_CAP = 64          # queries per group (larger voxel groups split)
@@ -101,7 +102,8 @@ def group_queries(m: HashGridMap, queries: torch.Tensor, params: GridParams,
     group_active.index_put_((lead,), torch.ones_like(lead, dtype=torch.bool))
     group_active = group_active[:g_max]
 
-    offs = torch.as_tensor(_neighbor_offsets(rings), device=dev)
+    with profiling.blocking("sync.offsets"):
+        offs = torch.as_tensor(_neighbor_offsets(rings), device=dev)
     nb_coords = leader_coarse[:, None, :] + offs[None, :, :]
     bucket_ids = _lookup_buckets(m.keys, nb_coords, params, dtype=torch.int32)
     bucket_ids = torch.where(group_active[:, None], bucket_ids, -1)
@@ -168,7 +170,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 def _launch(bucket_ids, order_q, centers, map_pts, k: int, out=None):
     """Launch `csrc/knn_grouped.cu` on PyTorch's current stream; `out` =
-    (sq, idx) are written in place of fresh outputs."""
+    (sq, idx) are written in place of fresh outputs.  Each launch counts
+    `knn_grouped.launches` in the current recorder (runtime/profiling.py)."""
     from .build import load
 
     dev = order_q.device
@@ -197,7 +200,7 @@ def _launch(bucket_ids, order_q, centers, map_pts, k: int, out=None):
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_grouped kernel launch failed: cudaError {err}")
-    knn_grouped.launches += 1
+    profiling.count("knn_grouped.launches")
     return sq, idx
 
 
@@ -265,9 +268,12 @@ def _gather(m: HashGridMap, grp: Groups, sq_g, idx_g, S: int):
 def _knn(m, queries, params, k, g_max, rings, max_buckets, topk):
     if g_max is None:
         g_max = max(queries.shape[0] // 4, 64)
-    grp = group_queries(m, queries, params, g_max, rings=rings, max_buckets=max_buckets)
-    sq_g, idx_g = topk(grp.bucket_ids, grp.order_q, grp.centers, m.pts, k)
-    return _gather(m, grp, sq_g, idx_g, params.slots)
+    with profiling.span("knn.group"):
+        grp = group_queries(m, queries, params, g_max, rings=rings, max_buckets=max_buckets)
+    with profiling.span("knn.kernel"):
+        sq_g, idx_g = topk(grp.bucket_ids, grp.order_q, grp.centers, m.pts, k)
+    with profiling.span("knn.gather"):
+        return _gather(m, grp, sq_g, idx_g, params.slots)
 
 
 def knn_grouped(m: HashGridMap, queries: torch.Tensor, params: GridParams, k: int = 5,
@@ -285,7 +291,3 @@ def knn_grouped_plain(m: HashGridMap, queries: torch.Tensor, params: GridParams,
     """`knn_grouped` with the per-group top-k always in plain PyTorch, on
     whatever device the tensors are (the kernel's reference)."""
     return _knn(m, queries, params, k, g_max, rings, max_buckets, group_topk_plain)
-
-
-#: kernel launches since the last reset (one per `_launch`)
-knn_grouped.launches = 0

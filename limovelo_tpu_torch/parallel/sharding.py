@@ -27,8 +27,8 @@ every rank owns a card.
 
 from __future__ import annotations
 
+import contextlib
 import os
-import time
 from functools import partial
 from typing import List, Sequence
 
@@ -41,9 +41,11 @@ from ..filter.update import iterated_update
 from ..geometry.state import select
 from ..mapping.hashgrid import GridParams, HashGridMap, insert
 from ..ops.voxel import voxel_downsample
+from ..runtime import profiling
 from ..step import StepInputs, StepOutputs, _derive_anchor_controls, make_telemetry
 
 AXIS = "points"
+_NO_STAGING = contextlib.nullcontext()
 
 
 class Mesh:
@@ -51,10 +53,12 @@ class Mesh:
     `Mesh(devices, (AXIS,))`): this process's rank and device, the world
     size, the group and its backend, and the collectives over it.
 
-    `stats` counts the collectives' calls and host seconds; with host
-    staging the device-to-host copy, which waits for the stream, is outside
-    the timed span, so the seconds are the exchange itself, waiting for the
-    slowest rank included."""
+    Each collective is a span of the current recorder (runtime/profiling.py:
+    `mesh.all_reduce`, `mesh.all_gather`, `mesh.ring_shift`) and counts
+    `mesh.collectives`; with host staging the copies between the card and
+    the host, which wait for the card, are `sync.mesh_staging`.  A span is
+    host time: with NCCL the exchange itself runs on the card, after the
+    span has closed."""
 
     def __init__(self, rank: int, size: int, device, backend: str, group=None):
         self.rank = rank
@@ -65,32 +69,32 @@ class Mesh:
         self.host_staging = backend == "gloo" and self.device.type == "cuda"
         if backend == "nccl" and self.device.type != "cuda":
             raise ValueError(f"the nccl backend needs a CUDA device, got {self.device}")
-        self.stats = {"calls": 0, "seconds": 0.0}
 
     def describe(self) -> dict:
         return dict(rank=self.rank, size=self.size, device=str(self.device),
                     backend=self.backend, host_staging=self.host_staging)
 
     # -- collectives ---------------------------------------------------
-    def _buffer(self, t: torch.Tensor) -> torch.Tensor:
-        """A fresh copy of `t` where the backend reads it."""
-        return t.detach().to("cpu" if self.host_staging else self.device, copy=True)
+    def _staging(self):
+        return profiling.blocking("sync.mesh_staging") if self.host_staging else _NO_STAGING
 
-    def _timed(self, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        self.stats["calls"] += 1
-        self.stats["seconds"] += time.perf_counter() - t0
-        return out
+    def _exchange(self, name: str, t: torch.Tensor, fn) -> torch.Tensor:
+        """`fn(buf)` on a fresh copy `buf` of `t` where the backend reads it;
+        its result comes back on `t`'s device."""
+        profiling.count("mesh.collectives")
+        with profiling.span(name):
+            with self._staging():
+                buf = t.detach().to("cpu" if self.host_staging else self.device, copy=True)
+            out = fn(buf)
+            with self._staging():
+                return out.to(t.device)
 
     def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
-        buf = self._buffer(t)
-
-        def run():
+        def run(buf):
             dist.all_reduce(buf, op=op, group=self.group)
-            return buf.to(t.device)
+            return buf
 
-        return self._timed(run)
+        return self._exchange("mesh.all_reduce", t, run)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """`jax.lax.psum`: the elementwise sum over ranks, on every rank."""
@@ -103,14 +107,12 @@ class Mesh:
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """`jax.lax.all_gather(..., tiled=True)`: every rank's rows of `t`,
         concatenated in rank order.  Every rank passes the same shape."""
-        buf = self._buffer(t)
-
-        def run():
+        def run(buf):
             parts = [torch.empty_like(buf) for _ in range(self.size)]
             dist.all_gather(parts, buf, group=self.group)
-            return torch.cat(parts).to(t.device)
+            return torch.cat(parts)
 
-        return self._timed(run)
+        return self._exchange("mesh.all_gather", t, run)
 
     def _global_rank(self, r: int) -> int:
         return r if self.group is None else dist.get_global_rank(self.group, r)
@@ -120,9 +122,8 @@ class Mesh:
         the next rank and the previous rank's `t` comes back."""
         if self.size == 1:
             return t
-        buf = self._buffer(t)
 
-        def run():
+        def run(buf):
             recv = torch.empty_like(buf)
             ops = [dist.P2POp(dist.isend, buf, self._global_rank((self.rank + 1) % self.size),
                               self.group),
@@ -130,9 +131,9 @@ class Mesh:
                               self.group)]
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-            return recv.to(t.device)
+            return recv
 
-        return self._timed(run)
+        return self._exchange("mesh.ring_shift", t, run)
 
     def check_on_device(self, tensors: Sequence[torch.Tensor], what: str) -> None:
         """Raise unless every tensor lies on the mesh's device: a rank never

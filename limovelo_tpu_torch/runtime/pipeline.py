@@ -57,6 +57,7 @@ from ..step import (TEL_ANCHOR_T, TEL_DELTA_NORM, TEL_DS_COUNT, TEL_EIG, TEL_EXT
                     TEL_EXT_T, TEL_ITERS, TEL_MAP_BUCKETS, TEL_MAP_DROPPED,
                     TEL_MAP_POINTS, TEL_MATCHES, TEL_P, TEL_R, TEL_RESIDUAL,
                     TEL_UPDATED, TEL_V, StepInputs, lio_step, mapping_step)
+from . import profiling
 from .accumulator import Accumulator
 from .profiling import StageTimers
 
@@ -190,7 +191,9 @@ class LioPipeline:
         # windows whose raw count cleared MAX_POINTS2MATCH but whose voxel
         # downsample fell below it: consumed without retry
         self.collapsed_windows = 0
+        # the recorder of this pipeline's stages, spans and counters
         self.timers = StageTimers()
+        profiling.install(self.timers)
 
     @classmethod
     def from_hd_map(cls, config, map_path: str, device="cuda",
@@ -216,10 +219,12 @@ class LioPipeline:
 
     # ------------------------------------------------------------------
     def add_scan(self, pts, t, intensity=None):
-        self.accum.add_scan(pts, t, intensity=intensity)
+        with self.timers.span("ingest.add_scan"):
+            self.accum.add_scan(pts, t, intensity=intensity)
 
     def add_imu(self, t, a, w, q=None):
-        self.accum.add_imu(t, a, w, q)
+        with self.timers.span("ingest.add_imu"):
+            self.accum.add_imu(t, a, w, q)
 
     # ------------------------------------------------------------------
     def _initialize(self):
@@ -276,7 +281,10 @@ class LioPipeline:
         return t_arr, a_arr, w_arr, mask
 
     def _to_dev(self, arr) -> torch.Tensor:
-        return torch.as_tensor(arr).to(self.device)
+        # a copy of pageable host memory: the card's copy ends in a stream
+        # synchronisation
+        with self.timers.blocking("sync.h2d"):
+            return torch.as_tensor(arr).to(self.device)
 
     def _pad_points(self, t1: float, t2: float, rebase: float):
         """Points with t in (t1, t2], padded to their shape bucket (the
@@ -306,6 +314,8 @@ class LioPipeline:
         cfg = self.config
         wall0 = _time.perf_counter()
         rebase = self.accum.initial_time
+        self.timers.window += 1
+        profiling.install(self.timers)
 
         with self.timers("assemble"):
             pts_pad, t_pad, mask, win_int, n = self._pad_points(t1, t2, rebase)
@@ -386,11 +396,13 @@ class LioPipeline:
         self.accum.clear_lidar(t2 - cfg.empty_lidar_time)
         self.accum.clear_imus(min(self.anchor_t, self.last_time_integrated) - 1.0)
 
-        with self.timers("tele_read"):
+        with self.timers("tele_read"), self.timers.blocking("sync.tele_read"):
             tele = out.telemetry.cpu().numpy()
         with self.timers("resolve_host"):
-            return self._resolve(t2, rebase, advanced, tele, wall0, out, anchor_a, anchor_w,
-                                 win_int)
+            rec = self._resolve(t2, rebase, advanced, tele, wall0, out, anchor_a, anchor_w,
+                                win_int)
+        self.timers.close_window()
+        return rec
 
     def _resolve(self, t2, rebase, advanced, tele, wall0, out, anchor_a, anchor_w, win_int
                  ) -> Optional[StepRecord]:
@@ -599,6 +611,10 @@ class LioPipeline:
     # ------------------------------------------------------------------
     def spin_once(self) -> bool:
         """One main-loop pass; returns True if a window was processed."""
+        with self.timers.span("pipeline.spin"):
+            return self._spin_once()
+
+    def _spin_once(self) -> bool:
         cfg = self.config
         if not self.accum.ready():
             return False

@@ -28,6 +28,7 @@ from .geometry import so3
 from .geometry.state import NavState, select
 from .mapping.hashgrid import GridParams, HashGridMap, insert
 from .ops.voxel import voxel_downsample
+from .runtime.profiling import blocking, span
 
 
 class StepInputs(NamedTuple):
@@ -142,8 +143,11 @@ def _derive_anchor_controls(inp: StepInputs, path_mask: torch.Tensor):
     window holds no sample."""
     any_valid = torch.any(path_mask)
     first = torch.argmax(path_mask.to(torch.int32))   # first True
-    a = torch.where(any_valid, inp.imus_path.a[first], inp.anchor_a)
-    w = torch.where(any_valid, inp.imus_path.w[first], inp.anchor_w)
+    # an index by a 0-dim tensor reads it to the host, once per indexing
+    with blocking("sync.anchor_controls", 2):
+        a_first, w_first = inp.imus_path.a[first], inp.imus_path.w[first]
+    a = torch.where(any_valid, a_first, inp.anchor_a)
+    w = torch.where(any_valid, w_first, inp.anchor_w)
     return a, w
 
 
@@ -151,34 +155,39 @@ def lio_step(inp: StepInputs, m: HashGridMap, static_cfg, grid: GridParams) -> S
     """One window.  The map's point tables are updated in place (see
     `mapping.hashgrid.insert`): pass the returned map to the next step."""
     # ---- IMU propagation ----
-    x_pred, P_pred = predict_window(inp.x, inp.P, inp.imus_filter, inp.t_integrated, inp.Q)
+    with span("step.predict"):
+        x_pred, P_pred = predict_window(inp.x, inp.P, inp.imus_filter, inp.t_integrated, inp.Q)
 
     # ---- motion deskew ----
-    # only path samples strictly after the anchor: the host may hand over a
-    # superset window selected from a lower bound of the anchor time
-    path_mask = inp.imus_path.mask & (inp.imus_path.t > inp.anchor_t)
-    imus_path = inp.imus_path._replace(mask=path_mask)
-    anchor_a, anchor_w = _derive_anchor_controls(inp, path_mask)
-    path = build_path(inp.anchor, inp.anchor_t, anchor_a, anchor_w, imus_path)
-    pts_l2 = compensate(path, inp.anchor, inp.t2, inp.pts, inp.pts_t, inp.pts_mask)
+    with span("step.deskew"):
+        # only path samples strictly after the anchor: the host may hand over
+        # a superset window selected from a lower bound of the anchor time
+        path_mask = inp.imus_path.mask & (inp.imus_path.t > inp.anchor_t)
+        imus_path = inp.imus_path._replace(mask=path_mask)
+        anchor_a, anchor_w = _derive_anchor_controls(inp, path_mask)
+        path = build_path(inp.anchor, inp.anchor_t, anchor_a, anchor_w, imus_path)
+        pts_l2 = compensate(path, inp.anchor, inp.t2, inp.pts, inp.pts_t, inp.pts_mask)
 
     # ---- spatial downsample ----
-    ds = voxel_downsample(pts_l2, inp.pts_mask, inp.dyn.downsample_prec)
-    enough = ds.count >= inp.dyn.MAX_POINTS2MATCH
+    with span("step.voxel"):
+        ds = voxel_downsample(pts_l2, inp.pts_mask, inp.dyn.downsample_prec)
+        enough = ds.count >= inp.dyn.MAX_POINTS2MATCH
 
     # ---- iterated point-to-plane update ----
-    x_corr, P_corr, diag = iterated_update(x_pred, P_pred, m, ds.pts, ds.mask, grid,
-                                           static_cfg, inp.dyn)
-    x_new = select(enough, x_corr, x_pred)
-    P_new = torch.where(enough, P_corr, P_pred)
+    with span("step.update"):
+        x_corr, P_corr, diag = iterated_update(x_pred, P_pred, m, ds.pts, ds.mask, grid,
+                                               static_cfg, inp.dyn)
+        x_new = select(enough, x_corr, x_pred)
+        P_new = torch.where(enough, P_corr, P_pred)
 
     # ---- mapping (online) ----
-    R_wl = x_new.R @ x_new.R_LI
-    t_wl = x_new.p + x_new.R @ x_new.t_LI
-    g_ds = ds.pts @ R_wl.T + t_wl
-    m_new = m
-    if static_cfg.mapping_online:
-        m_new = insert(m, g_ds, ds.mask & enough, grid, downsample=True)
+    with span("step.insert"):
+        R_wl = x_new.R @ x_new.R_LI
+        t_wl = x_new.p + x_new.R @ x_new.t_LI
+        g_ds = ds.pts @ R_wl.T + t_wl
+        m_new = m
+        if static_cfg.mapping_online:
+            m_new = insert(m, g_ds, ds.mask & enough, grid, downsample=True)
 
     g_full = pts_l2 @ R_wl.T + t_wl
 
@@ -186,7 +195,8 @@ def lio_step(inp: StepInputs, m: HashGridMap, static_cfg, grid: GridParams) -> S
     anchor_new = select(enough, x_new, inp.anchor)
     anchor_t_new = torch.where(enough, inp.t2.to(torch.float32), inp.anchor_t.to(torch.float32))
 
-    telemetry = make_telemetry(enough, ds.count, diag, x_new, m_new, anchor_t_new)
+    with span("step.telemetry"):
+        telemetry = make_telemetry(enough, ds.count, diag, x_new, m_new, anchor_t_new)
     return StepOutputs(
         x=x_new, P=P_new, map=m_new, updated=enough, ds_count=ds.count,
         global_pts=g_full, global_mask=inp.pts_mask,

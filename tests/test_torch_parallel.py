@@ -282,7 +282,8 @@ def test_grouped_backend_through_the_sharded_step(world, jmesh, monkeypatch):
     """The grouped KNN on the point-sharded step: the JAX package's Pallas
     kernel in interpret mode under `shard_map` against the port's plain
     version of the kernel on each rank (g_max taken per shard on both
-    sides); on the CPU the port launches no kernel."""
+    sides); on the CPU the port launches no kernel.  Every rank counts the
+    same collectives (they are called in one order)."""
     monkeypatch.setattr(pallas_knn, "knn_grouped",
                         functools.partial(pallas_knn.knn_grouped, interpret=True))
     ranks = _case(world, "step_grouped")
@@ -293,6 +294,7 @@ def test_grouped_backend_through_the_sharded_step(world, jmesh, monkeypatch):
     out2 = _np(step(inp, out1.map))
     for r in ranks:
         assert r["launches"] == 0
+        assert r["collectives"] == ranks[0]["collectives"] > 0
         _assert_step_matches(r["first"], first)
         _assert_step_matches(r["second"], out2)
     assert ranks[0]["second"]["num_matches"] > 0

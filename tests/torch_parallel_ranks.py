@@ -18,7 +18,13 @@ from limovelo_tpu_torch import interop
 from limovelo_tpu_torch.config import DynParams
 from limovelo_tpu_torch.filter.process import ImuWindow, process_noise_Q
 from limovelo_tpu_torch.mapping.hashgrid import GridParams, HashGridMap, make_map
+from limovelo_tpu_torch.runtime import profiling
 from limovelo_tpu_torch.step import StepInputs
+
+
+def _launches() -> int:
+    """Grouped-kernel launches counted by the rank's current recorder."""
+    return profiling.current().counters["knn_grouped.launches"]
 
 
 def port_inputs(inp: dict, cfg, device="cpu") -> StepInputs:
@@ -82,18 +88,19 @@ def _step_out(out) -> dict:
 
 
 def case_step_points(mesh, p):
-    from limovelo_tpu_torch.ops.cuda.knn import knn_grouped
     from limovelo_tpu_torch.parallel.sharding import make_sharded_step
 
     cfg = interop.config_from_kwargs(p["cfg"])
     grid = GridParams.from_config(cfg)
     step = make_sharded_step(mesh, cfg, grid)
     inp = _local_rows(mesh, port_inputs(p["inp"], cfg))
-    launches = knn_grouped.launches
+    counters = profiling.current().counters
+    launches, collectives = _launches(), counters["mesh.collectives"]
     out1 = step(inp, make_map(grid, device="cpu"))
     r1 = _step_out(out1)
     out2 = step(inp, out1.map)
-    return dict(first=r1, second=_step_out(out2), launches=knn_grouped.launches - launches)
+    return dict(first=r1, second=_step_out(out2), launches=_launches() - launches,
+                collectives=counters["mesh.collectives"] - collectives)
 
 
 def case_step_map(mesh, p):
@@ -206,7 +213,6 @@ def case_pipeline(mesh, p):
 def case_card_step(mesh, p):
     """Two chained point-sharded steps on the card (the grouped backend):
     the state and this rank's grouped-kernel launches per step."""
-    from limovelo_tpu_torch.ops.cuda.knn import knn_grouped
     from limovelo_tpu_torch.parallel.sharding import make_sharded_step
 
     cfg = p["cfg"]
@@ -215,9 +221,9 @@ def case_card_step(mesh, p):
     inp = _local_rows(mesh, example_inputs(cfg, p["n_pts"], p["n_imu"], mesh.device, p["pts"]))
     m, out, launches = make_map(grid, device=mesh.device), [], []
     for _ in range(2):
-        before = knn_grouped.launches
+        before = _launches()
         o = step(inp, m)
-        launches.append(knn_grouped.launches - before)
+        launches.append(_launches() - before)
         out.append(dict(p=o.x.p.cpu().numpy(), R=o.x.R.cpu().numpy(),
                         num_matches=int(o.diag.num_matches), device=str(o.x.p.device)))
         m = o.map
