@@ -9,6 +9,7 @@ Phases, each printing one JSON line with its elapsed seconds:
 
   env      the card: torch's name for it, nvidia-smi's name and power limit
   build    nvcc builds every kernel of the main path from limovelo_tpu_torch/csrc
+           (ptxas's registers, shared memory and spills, by source)
   sim      a VLP-16-like stream (16 lines x 1800 columns at 10 Hz, IMU at
            400 Hz, 3 s of a 24 m room with ten boxes, 4 m circle)
   kernel   each kernel against its plain PyTorch version on the card, at the
@@ -18,6 +19,17 @@ Phases, each printing one JSON line with its elapsed seconds:
            to its output contract (ops/cuda/knn.py); the kernel's time, the
            plain version's, the bound, the work the data needs, and the
            early-exit floor (the same groups with every bucket absent)
+  imu_chain  the three kernels of csrc/imu_chain.cu (the filter's IMU
+           propagation, the deskew path, the per-point deskew) at the
+           benchmark cell's shapes (the 128 IMU bucket of a 1000 Hz window,
+           32768 points out to 80 m) against their plain versions on the
+           card (bit for bit but for the covariance, within 1e-6 of its
+           largest entry) and the CPU: the largest differences, each
+           kernel's device time and host time to a synchronised result, the
+           deskew's byte bound, the plain versions' times and the operations
+           they run on the card; the main phase then checks, by each
+           kernel's own launch counter, that every window launched each
+           kernel once
   main     LioPipeline(DEFAULT with the 1-ring grouped KNN, device="cuda")
            replays the stream; every launch count is set to 0 just before
            and read just after, and each window must have launched the kernel
@@ -178,6 +190,12 @@ POSEGRAPH_TOL = 1e-4
 SHARD_TIMEOUT_S = 420.0      # a spawned world's limit: a hung rank fails the script
 CLI_SIM_S = 2.0
 DEVICE = "cuda"              # where the main path's phases run
+KERNEL_SOURCES = ("knn_grouped", "imu_chain")
+#: the imu_chain phase's shapes: the benchmark cell's IMU bucket and points
+IMU_M = 128
+IMU_N = 32768
+IMU_T0 = 12.5                # rebased seconds into a run
+IMU_KERNELS = ("predict", "path", "deskew")   # imu_chain.<kernel>.launches
 
 _T0 = time.perf_counter()
 
@@ -366,6 +384,128 @@ def kernel_phase(world_pts: np.ndarray, scan_w: np.ndarray, sensor: np.ndarray, 
 
 
 # ---------------------------------------------------------------------------
+# the IMU chains' kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def wall_ms(fn, reps: int = 10) -> float:
+    """Host time of one fn() call that ends in a synchronise: the median of
+    `reps` after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def device_ops(fn) -> int:
+    """Operations one fn() call runs on the card (kernels, copies, fills),
+    from a torch.profiler capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def abs_err(got, want) -> float:
+    return float((got.detach().cpu().double() - want.detach().cpu().double()).abs().max())
+
+
+def imu_chain_phase():
+    """The three `imu_chain` kernels at the benchmark cell's shapes (KITTI's
+    0.1 s window at 1000 Hz in the 128 IMU bucket, N = IMU_N points out to
+    80 m), against their plain versions on the card (bit for bit but for
+    the covariance, within 1e-6 of its largest entry) and, for scale, on the
+    CPU: the largest differences, each kernel's device time, its host time
+    to a synchronised result, and the plain versions' time and operations."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import imu_cases as ic
+    from limovelo_tpu_torch.deskew import compensate as dk
+    from limovelo_tpu_torch.filter import process as proc
+    from limovelo_tpu_torch.runtime import profiling
+
+    rng = np.random.default_rng(12)
+    t0 = torch.tensor(IMU_T0)
+    x, P, Q, win = ic.state(rng), ic.covariance(rng), ic.noise(), ic.window(rng, IMU_M, "tail",
+                                                                           IMU_T0)
+    a0, w0 = ic.controls(rng)
+    path_cpu = dk.build_path(x, t0, a0, w0, win, after_anchor=True)
+    t2 = path_cpu.t[-1]
+    pts, pts_t, msk = ic.points(rng, IMU_N, float(path_cpu.t[0]), float(t2), path_cpu.t.numpy())
+    cpu = (x, P, Q, win, t0, a0, w0, t2, pts, pts_t, msk)
+    xg, Pg, Qg, wg, t0g, a0g, w0g, t2g, ptsg, pts_tg, mskg = (ic.to(v, "cuda") for v in cpu)
+    path_g = dk.build_path(xg, t0g, a0g, w0g, wg, after_anchor=True)
+    calls = {
+        "imu_predict": (lambda: proc.predict_window(xg, Pg, wg, t0g, Qg),
+                        lambda: proc.predict_window_plain(xg, Pg, wg, t0g, Qg)),
+        "imu_path": (lambda: dk.build_path(xg, t0g, a0g, w0g, wg, after_anchor=True),
+                     lambda: dk.build_path_plain(xg, t0g, a0g, w0g, wg, after_anchor=True)),
+        "imu_deskew": (lambda: dk.compensate(path_g, xg, t2g, ptsg, pts_tg, mskg),
+                       lambda: dk.compensate_plain(path_g, xg, t2g, ptsg, pts_tg, mskg)),
+    }
+    rec = profiling.current()
+    keys = {k: f"imu_chain.{k}.launches" for k in IMU_KERNELS}
+    kernels = {}
+    for name, (kernel, plain) in calls.items():
+        before = {k: rec.counters[key] for k, key in keys.items()}
+        got, want_card = kernel(), plain()
+        torch.cuda.synchronize()
+        launches = {k: rec.counters[key] - before[k] for k, key in keys.items()}
+        kernels[name] = dict(launches=launches, ms=time_ms(kernel),
+                             plain_ms=time_ms(plain, reps=5, batch=1, warmup=1),
+                             wall_ms=wall_ms(kernel), plain_wall_ms=wall_ms(plain),
+                             plain_ops=device_ops(plain))
+        if launches != {k: int(name == f"imu_{k}") for k in IMU_KERNELS}:
+            raise AssertionError(f"{name}: launches by kernel {launches}")
+        kernels[name]["outputs"] = (got, want_card)
+    # the deskew's byte bound: what it must read (the points, their stamps
+    # and mask, the path's nodes) and write (the points) over HBM's rate;
+    # the two chains are sequential scans of M dependent steps, for which
+    # no byte or FLOP roofline applies
+    nbytes = sum(t.nbytes for t in (ptsg, pts_tg, mskg, *path_g[:6])) + ptsg.nbytes
+    for name, k in kernels.items():
+        k["bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3 if name == "imu_deskew" else None
+        k["bound_by"] = ("bytes" if name == "imu_deskew" else
+                         "latency: a sequential scan, no byte or FLOP roofline applies")
+        k["share_of_bound"] = k["bound_ms"] / k["ms"] if k["bound_ms"] else None
+    # the largest differences from the plain versions on the card (the
+    # kernels' reference: zero but for P) and, for scale, on the CPU; the
+    # deskew on each side's own path, as lio_step runs it
+    (xk, Pk), (xc, Pc) = kernels["imu_predict"].pop("outputs")
+    xw, Pw = proc.predict_window_plain(x, P, win, t0, Q)
+    pk, pc = kernels["imu_path"].pop("outputs")
+    ok, _ = kernels["imu_deskew"].pop("outputs")
+    oc = dk.compensate_plain(pc, xg, t2g, ptsg, pts_tg, mskg)
+    ow = dk.compensate(path_cpu, x, t2, pts, pts_t, msk)
+    nav = ("R", "p", "v")
+    errs = {
+        "imu_predict": dict(x=max(abs_err(getattr(xk, f), getattr(xc, f)) for f in nav),
+                            P_rel=abs_err(Pk, Pc) / float(Pc.abs().max()),
+                            x_cpu=max(abs_err(getattr(xk, f), getattr(xw, f)) for f in nav),
+                            P_rel_cpu=abs_err(Pk, Pw) / float(Pw.abs().max())),
+        "imu_path": dict(nodes=max(abs_err(getattr(pk, f).float(), getattr(pc, f).float())
+                                   for f in pk._fields),
+                         nodes_cpu=max(abs_err(getattr(pk, f).float(), getattr(path_cpu, f).float())
+                                       for f in pk._fields)),
+        "imu_deskew": dict(pts=abs_err(ok, oc), pts_cpu=abs_err(ok, ow)),
+    }
+    for name in kernels:
+        kernels[name]["max_err"] = errs[name]
+    e = errs
+    if (e["imu_predict"]["x"] or e["imu_predict"]["P_rel"] > 1e-6 or e["imu_path"]["nodes"]
+            or e["imu_deskew"]["pts"]):
+        raise AssertionError(f"imu_chain: the kernels differ from the plain versions: {errs}")
+    return kernels
+
+
+# ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
 
@@ -410,8 +550,9 @@ def cast_views(world, sim, fractions):
 class counted_windows:
     """Every LioPipeline window run inside the block, counted, whichever
     code built the pipeline (the CLI phases': the CLI): per window
-    (launches, accepted, seconds, raw points), the launches read from the
-    pipeline's recorder; `launches`, their sum."""
+    (launches, accepted, seconds, raw points, imu_chain launches by
+    kernel), the launches read from the pipeline's recorder; `launches`,
+    their sum."""
 
     def __enter__(self):
         from limovelo_tpu_torch.runtime.pipeline import LioPipeline
@@ -421,10 +562,14 @@ class counted_windows:
 
         def counted(pipe, t1, t2):
             n = len(pipe.accum.get_points(t1, t2)[0])
-            before, t0 = pipe.timers.counters["knn_grouped.launches"], time.perf_counter()
+            c = pipe.timers.counters
+            imu_keys = [f"imu_chain.{k}.launches" for k in IMU_KERNELS]
+            before, imu = c["knn_grouped.launches"], [c[k] for k in imu_keys]
+            t0 = time.perf_counter()
             rec = step(pipe, t1, t2)
-            windows.append((pipe.timers.counters["knn_grouped.launches"] - before,
-                            rec is not None, time.perf_counter() - t0, n))
+            windows.append((c["knn_grouped.launches"] - before, rec is not None,
+                            time.perf_counter() - t0, n,
+                            {k: c[key] - b for k, key, b in zip(IMU_KERNELS, imu_keys, imu)}))
             return rec
 
         LioPipeline.step_window = counted
@@ -514,11 +659,18 @@ def main_phase(sim):
     on_card = pipe.device.type == "cuda"
     if on_card and launches < len(res.records):
         raise AssertionError(f"launches {launches} < records {len(res.records)}")
+    # predict and deskew: one launch of each imu_chain kernel a window,
+    # each counted under its own name
+    imu = {k: sorted({w[4][k] for w in windows}) for k in IMU_KERNELS}
+    if on_card and any(v != [1] for v in imu.values()):
+        raise AssertionError(f"imu_chain launches a window, by kernel: {imu}")
     ds = np.array([r.ds_count for r in res.records], float)
     nm = np.array([r.num_matches for r in res.records], float)
     match_frac = float(nm[1:].sum() / ds[1:].sum())
     stats = dict(
-        **window_stats(windows, launches), records=len(res.records), ate_m=ate,
+        **window_stats(windows, launches), imu_chain_launches_per_window=imu,
+        imu_chain_launches={k: sum(w[4][k] for w in windows) for k in IMU_KERNELS},
+        records=len(res.records), ate_m=ate,
         mean_ds_count=float(ds.mean()), mean_matches=float(nm.mean()), match_frac=match_frac,
         replay_wall_s=wall, collapsed_windows=pipe.collapsed_windows,
         stage_p50_ms={k: v["p50_ms"] for k, v in pipe.timers.summary().items()},
@@ -1267,10 +1419,10 @@ def main() -> int:
     from limovelo_tpu_torch.ops.cuda import build
 
     t = time.perf_counter()
-    build.build(["knn_grouped"])
+    build.build(KERNEL_SOURCES)
     phase("build", seconds=time.perf_counter() - t,
-          ptxas=[ln.strip() for ln in build.build_logs.get("knn_grouped", "").splitlines()
-                 if "Used" in ln or "spill" in ln])
+          ptxas={name: [ln.strip() for ln in build.build_logs.get(name, "").splitlines()
+                        if "Used" in ln or "spill" in ln] for name in KERNEL_SOURCES})
 
     if "--profile" in sys.argv[1:]:
         profile_phase(make_sim()[1])
@@ -1283,8 +1435,10 @@ def main() -> int:
     phase("sim", scans=len(sim.scans), returns_per_scan=float(np.mean([len(s.pts) for s in sim.scans])),
           imu_samples=len(sim.imu_t), seconds=render_s["main"])
 
-    cases, max_err = kernel_phase(*kernel_views(world, sim))
-    phase("kernel", kernel="knn_grouped", max_abs_d2_err=max_err, cases=cases)
+    cases, d2_err = kernel_phase(*kernel_views(world, sim))
+    phase("kernel", kernel="knn_grouped", max_abs_d2_err=d2_err, cases=cases)
+    imu_kernels = imu_chain_phase()
+    phase("imu_chain", m=IMU_M, n=IMU_N, kernels=imu_kernels)
 
     phase_launches = {}
     main_pipe, res, stats = main_phase(sim)
@@ -1318,13 +1472,28 @@ def main() -> int:
         "source": "limovelo_tpu_torch/csrc/knn_grouped.cu",
         "replaces": "limovelo_tpu/ops/pallas/knn.py:184",
         "launches": int(sum(phase_launches.values())),
-        "max_abs_err": max_err,
+        "max_abs_err": d2_err,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": None,
-    }]})
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "limovelo_tpu_torch/csrc/imu_chain.cu",
+        "replaces": None,
+        # measured: this kernel's own counter over main's windows
+        "launches": stats["imu_chain_launches"][name[4:]],
+        "launches_per_main_window": stats["imu_chain_launches"][name[4:]] / stats["windows"],
+        "max_abs_err": k["max_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "share_of_bound": k["share_of_bound"],
+        "library_ms": None,
+    } for name, k in imu_kernels.items()]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

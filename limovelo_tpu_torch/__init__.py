@@ -4,7 +4,9 @@ The same LiDAR-inertial odometry engine (variable-window iterated error-state
 Kalman filter, per-point deskew, voxel hash-grid map with batched KNN),
 written in PyTorch for an NVIDIA H100.  The grouped KNN that the JAX package
 runs as a Pallas TPU kernel is a hand-written CUDA kernel here
-(`ops/cuda/knn.py`, source in `csrc/knn_grouped.cu`).
+(`ops/cuda/knn.py`, source in `csrc/knn_grouped.cu`), and so are the IMU
+chains of the prediction and the deskew (`ops/cuda/imu_chain.py`, source in
+`csrc/imu_chain.cu`).
 
 Every entry point takes an explicit `device`; the default is "cuda" and a
 missing card raises instead of silently running on the CPU.

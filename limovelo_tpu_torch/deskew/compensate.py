@@ -7,6 +7,10 @@
   the residual dt in closed form and maps the point into the LiDAR frame at
   t2.
 
+On CUDA tensors each is one launch of a kernel in `csrc/imu_chain.cu`
+(`ops/cuda/imu_chain.py`) that reads nothing back to the host; on CPU
+tensors they run `build_path_plain` and `compensate_plain`.
+
 Frames:  p_lidar --(T_IL = I_Rt_L)--> p_imu --(X_tp)--> world
          then world --(X_t2 · T_IL)⁻¹--> lidar@t2.
 """
@@ -20,6 +24,7 @@ import torch
 from ..filter.process import ImuWindow, masked_dt, rotation_chain
 from ..geometry import so3
 from ..geometry.state import NavState
+from ..ops.cuda import imu_chain
 from ..runtime import profiling
 
 
@@ -49,13 +54,47 @@ def _integrate(R, p, v, bg, ba, g, a, w, dt):
     return R_n, p_n, v_n
 
 
-def build_path(anchor: NavState, anchor_t, anchor_a, anchor_w, imus: ImuWindow) -> PathNodes:
-    """Integrate `anchor` through the IMU window → path nodes.
+def build_path(anchor: NavState, anchor_t, anchor_a, anchor_w, imus: ImuWindow,
+               after_anchor: bool = False) -> PathNodes:
+    """Integrate `anchor` through the IMU window → path nodes: the CUDA
+    kernel for CUDA tensors, `build_path_plain` otherwise.
+
+    `after_anchor` (`step.lio_step`'s path): only samples strictly after
+    `anchor_t` count, since the host may hand over a superset window
+    selected from a lower bound of the anchor time, and the controls at the
+    anchor are the first such sample's (`anchor_a`/`anchor_w` when there is
+    none).  Without it (`step.mapping_step`) the mask and the controls are
+    taken as given."""
+    if anchor.p.device.type == "cuda":
+        return PathNodes(*imu_chain.path(anchor, anchor_t, anchor_a, anchor_w, imus,
+                                         after_anchor))
+    return build_path_plain(anchor, anchor_t, anchor_a, anchor_w, imus, after_anchor)
+
+
+def _first_controls(imus: ImuWindow, anchor_a, anchor_w):
+    """Controls at the anchor = the window's first valid sample; the
+    host-provided controls when the window holds none."""
+    any_valid = torch.any(imus.mask)
+    first = torch.argmax(imus.mask.to(torch.int32))   # first True
+    # an index by a 0-dim tensor reads it to the host, once per indexing
+    with profiling.blocking("sync.anchor_controls", 2):
+        a_first, w_first = imus.a[first], imus.w[first]
+    return (torch.where(any_valid, a_first, anchor_a),
+            torch.where(any_valid, w_first, anchor_w))
+
+
+def build_path_plain(anchor: NavState, anchor_t, anchor_a, anchor_w, imus: ImuWindow,
+                     after_anchor: bool = False) -> PathNodes:
+    """`build_path` in plain PyTorch, on whatever device the tensors are
+    (the kernel's reference).
 
     Node 0 is the anchor with its last controls (anchor_a/anchor_w); node
     i+1 is the state after IMU entry i, integrated with that entry's
     incoming controls.  The carried controls are smoothed (½ old + ½ new)
     over the valid entries."""
+    if after_anchor:
+        imus = imus._replace(mask=imus.mask & (imus.t > anchor_t))
+        anchor_a, anchor_w = _first_controls(imus, anchor_a, anchor_w)
     dtype, dev = anchor.p.dtype, anchor.p.device
     t0 = torch.as_tensor(anchor_t, dtype=dtype, device=dev).reshape(1)
     M = imus.t.shape[0]
@@ -122,7 +161,17 @@ def state_at(path: PathNodes, anchor: NavState, t) -> Tuple[torch.Tensor, torch.
 def compensate(path: PathNodes, anchor: NavState, t2, pts: torch.Tensor,
                pts_t: torch.Tensor, pts_mask: torch.Tensor) -> torch.Tensor:
     """Deskew (N,3) LiDAR-frame points stamped `pts_t` to the LiDAR frame at
-    t2; masked rows come back as zeros."""
+    t2; masked rows come back as zeros.  The CUDA kernel for CUDA tensors,
+    `compensate_plain` otherwise."""
+    if pts.device.type == "cuda":
+        return imu_chain.deskew(path, anchor, t2, pts, pts_t, pts_mask)
+    return compensate_plain(path, anchor, t2, pts, pts_t, pts_mask)
+
+
+def compensate_plain(path: PathNodes, anchor: NavState, t2, pts: torch.Tensor,
+                     pts_t: torch.Tensor, pts_mask: torch.Tensor) -> torch.Tensor:
+    """`compensate` in plain PyTorch, on whatever device the tensors are
+    (the kernel's reference)."""
     seg = _bracket(path.t, pts_t)
     dt = torch.clamp(pts_t - path.t[seg], min=0.0)
     d = dt[:, None]

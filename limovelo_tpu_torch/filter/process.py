@@ -7,7 +7,9 @@ Continuous dynamics (right-perturbation error state, noise order
     ṗ = v            Ṙ = R·hat(w−bg)         v̇ = R(a−ba) + g
     ḃg = nbg         ḃa = nba                ġ = 0   (S², ‖g‖ fixed)
 
-`predict_window` replays a padded IMU window.  Everything that does not
+`predict_window` replays a padded IMU window: on a CUDA tensor in one
+launch of the kernel in `csrc/imu_chain.cu` (`ops/cuda/imu_chain.py`), on a
+CPU tensor by `predict_window_plain`.  There everything that does not
 depend on the running state (the per-sample dt, the rotation increments,
 the noise products) is computed for the whole window at once; only the
 3×3 rotation chain and the 23×23 covariance chain stay sequential.  Masked
@@ -23,6 +25,7 @@ import torch
 
 from ..geometry import s2, so3
 from ..geometry.state import BA, BG, ERROR_DIM, GRAV, NavState, POS, ROT, VEL
+from ..ops.cuda import imu_chain
 
 NOISE_DIM = 12  # (gyro, acc, bias-gyro, bias-acc)
 
@@ -114,9 +117,19 @@ def rotation_chain(R0: torch.Tensor, inc: torch.Tensor) -> torch.Tensor:
 
 def predict_window(x: NavState, P: torch.Tensor, imus: ImuWindow, t0, Q: torch.Tensor):
     """Propagate (x, P) through every IMU sample in the window, including the
-    final extrapolation entry to t2 (the caller appends it).
+    final extrapolation entry to t2 (the caller appends it): the CUDA kernel
+    for CUDA tensors, `predict_window_plain` otherwise.
 
     Returns (x_t2, P_t2)."""
+    if P.device.type == "cuda":
+        R, p, v, P_t2 = imu_chain.predict(x, P, imus, t0, Q)
+        return x._replace(R=R, p=p, v=v), P_t2
+    return predict_window_plain(x, P, imus, t0, Q)
+
+
+def predict_window_plain(x: NavState, P: torch.Tensor, imus: ImuWindow, t0, Q: torch.Tensor):
+    """`predict_window` in plain PyTorch, on whatever device the tensors
+    are (the kernel's reference)."""
     dt = masked_dt(imus.t, imus.mask, t0)                       # (M,)
     Rs = rotation_chain(x.R, so3.exp((imus.w - x.bg) * dt[:, None]))
     R_prev = Rs[:-1]                                            # state before each sample

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (`limovelo_tpu_torch/csrc/*.cu`).
+"""Build and load the port's CUDA kernels (`limovelo_tpu_torch/csrc/*.cu`),
+and check the tensors their wrappers hand them.
 
 Each source is compiled by `nvcc` for Hopper (`sm_90a`) into a shared
 library with a plain C interface, at first use, into `build/kernels/` at the
@@ -18,6 +19,8 @@ import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -93,3 +96,13 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`:
+    a kernel takes its arguments as raw pointers."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -52,6 +52,7 @@ from ...mapping.hashgrid import (
 )
 from ...runtime import profiling
 from ..voxel import lexsort
+from .build import check_tensor, load
 
 GROUP_CAP = 64          # queries per group (larger voxel groups split)
 MAX_K = 8               # the kernel is instantiated for k = 1..8
@@ -160,20 +161,10 @@ def group_topk_plain(bucket_ids, order_q, centers, map_pts, k: int, chunk: int =
     return sq, idx
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(bucket_ids, order_q, centers, map_pts, k: int, out=None):
     """Launch `csrc/knn_grouped.cu` on PyTorch's current stream; `out` =
     (sq, idx) are written in place of fresh outputs.  Each launch counts
     `knn_grouped.launches` in the current recorder (runtime/profiling.py)."""
-    from .build import load
-
     dev = order_q.device
     G, NB = bucket_ids.shape
     S = map_pts.shape[1]
@@ -182,16 +173,16 @@ def _launch(bucket_ids, order_q, centers, map_pts, k: int, out=None):
     if not 1 <= NB <= MAX_NB:
         raise ValueError(f"{NB} buckets per group: the grouped kernel takes 1..{MAX_NB} "
                          "(rings > 1 needs max_buckets)")
-    _check(bucket_ids, "bucket_ids", torch.int32, (G, NB), dev)
-    _check(order_q, "order_q", torch.float32, (G, GROUP_CAP, 3), dev)
-    _check(centers, "centers", torch.float32, (G, 1, 3), dev)
-    _check(map_pts, "map_pts", torch.float32, (map_pts.shape[0], S, 3), dev)
+    check_tensor(bucket_ids, "bucket_ids", torch.int32, (G, NB), dev)
+    check_tensor(order_q, "order_q", torch.float32, (G, GROUP_CAP, 3), dev)
+    check_tensor(centers, "centers", torch.float32, (G, 1, 3), dev)
+    check_tensor(map_pts, "map_pts", torch.float32, (map_pts.shape[0], S, 3), dev)
     if out is None:
         out = (torch.empty((G, GROUP_CAP, k), dtype=torch.float32, device=dev),
                torch.empty((G, GROUP_CAP, k), dtype=torch.int32, device=dev))
     sq, idx = out
-    _check(sq, "sq", torch.float32, (G, GROUP_CAP, k), dev)
-    _check(idx, "idx", torch.int32, (G, GROUP_CAP, k), dev)
+    check_tensor(sq, "sq", torch.float32, (G, GROUP_CAP, k), dev)
+    check_tensor(idx, "idx", torch.int32, (G, GROUP_CAP, k), dev)
     fn = load("knn_grouped").knn_grouped_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]

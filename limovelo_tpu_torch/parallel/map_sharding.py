@@ -33,7 +33,7 @@ from ..geometry.state import select
 from ..mapping.hashgrid import (GridParams, HashGridMap, _fine_coords, insert, knn, make_map,
                                 prune)
 from ..ops.voxel import voxel_downsample
-from ..step import StepInputs, StepOutputs, _derive_anchor_controls, make_telemetry
+from ..step import StepInputs, StepOutputs, make_telemetry
 from .sharding import AXIS, Mesh, _check_inputs, gather_rows
 
 __all__ = ["AXIS", "local_grid", "owner_of", "insert_sharded", "ring_knn", "prune_sharded",
@@ -142,10 +142,8 @@ def _body(inp: StepInputs, m_local: HashGridMap, static_cfg, lgrid: GridParams,
     the owner-routed insert."""
     _check_inputs(mesh, inp, m_local)
     x_pred, P_pred = predict_window(inp.x, inp.P, inp.imus_filter, inp.t_integrated, inp.Q)
-    path_mask = inp.imus_path.mask & (inp.imus_path.t > inp.anchor_t)
-    imus_path = inp.imus_path._replace(mask=path_mask)
-    anchor_a, anchor_w = _derive_anchor_controls(inp, path_mask)
-    path = build_path(inp.anchor, inp.anchor_t, anchor_a, anchor_w, imus_path)
+    path = build_path(inp.anchor, inp.anchor_t, inp.anchor_a, inp.anchor_w, inp.imus_path,
+                      after_anchor=True)
 
     pts_l2 = compensate(path, inp.anchor, inp.t2, inp.pts, inp.pts_t, inp.pts_mask)
     ds = voxel_downsample(pts_l2, inp.pts_mask, inp.dyn.downsample_prec)

@@ -42,7 +42,7 @@ from ..geometry.state import select
 from ..mapping.hashgrid import GridParams, HashGridMap, insert
 from ..ops.voxel import voxel_downsample
 from ..runtime import profiling
-from ..step import StepInputs, StepOutputs, _derive_anchor_controls, make_telemetry
+from ..step import StepInputs, StepOutputs, make_telemetry
 
 AXIS = "points"
 _NO_STAGING = contextlib.nullcontext()
@@ -206,10 +206,8 @@ def _sharded_body(inp: StepInputs, m: HashGridMap, static_cfg, grid: GridParams,
     _check_inputs(mesh, inp, m)
     # replicated sequential pieces (the 23-dim filter math)
     x_pred, P_pred = predict_window(inp.x, inp.P, inp.imus_filter, inp.t_integrated, inp.Q)
-    path_mask = inp.imus_path.mask & (inp.imus_path.t > inp.anchor_t)
-    imus_path = inp.imus_path._replace(mask=path_mask)
-    anchor_a, anchor_w = _derive_anchor_controls(inp, path_mask)
-    path = build_path(inp.anchor, inp.anchor_t, anchor_a, anchor_w, imus_path)
+    path = build_path(inp.anchor, inp.anchor_t, inp.anchor_a, inp.anchor_w, inp.imus_path,
+                      after_anchor=True)
 
     # local shard: deskew and downsample (per-shard dedup)
     pts_l2 = compensate(path, inp.anchor, inp.t2, inp.pts, inp.pts_t, inp.pts_mask)

@@ -28,7 +28,7 @@ from .geometry import so3
 from .geometry.state import NavState, select
 from .mapping.hashgrid import GridParams, HashGridMap, insert
 from .ops.voxel import voxel_downsample
-from .runtime.profiling import blocking, span
+from .runtime.profiling import span
 
 
 class StepInputs(NamedTuple):
@@ -137,20 +137,6 @@ def make_telemetry(enough, ds_count, diag: UpdateDiagnostics, x_new: NavState,
     ])
 
 
-def _derive_anchor_controls(inp: StepInputs, path_mask: torch.Tensor):
-    """Controls at the anchor = the first IMU sample after anchor_t, derived
-    from the (superset) path window; the host-provided controls when the
-    window holds no sample."""
-    any_valid = torch.any(path_mask)
-    first = torch.argmax(path_mask.to(torch.int32))   # first True
-    # an index by a 0-dim tensor reads it to the host, once per indexing
-    with blocking("sync.anchor_controls", 2):
-        a_first, w_first = inp.imus_path.a[first], inp.imus_path.w[first]
-    a = torch.where(any_valid, a_first, inp.anchor_a)
-    w = torch.where(any_valid, w_first, inp.anchor_w)
-    return a, w
-
-
 def lio_step(inp: StepInputs, m: HashGridMap, static_cfg, grid: GridParams) -> StepOutputs:
     """One window.  The map's point tables are updated in place (see
     `mapping.hashgrid.insert`): pass the returned map to the next step."""
@@ -160,12 +146,8 @@ def lio_step(inp: StepInputs, m: HashGridMap, static_cfg, grid: GridParams) -> S
 
     # ---- motion deskew ----
     with span("step.deskew"):
-        # only path samples strictly after the anchor: the host may hand over
-        # a superset window selected from a lower bound of the anchor time
-        path_mask = inp.imus_path.mask & (inp.imus_path.t > inp.anchor_t)
-        imus_path = inp.imus_path._replace(mask=path_mask)
-        anchor_a, anchor_w = _derive_anchor_controls(inp, path_mask)
-        path = build_path(inp.anchor, inp.anchor_t, anchor_a, anchor_w, imus_path)
+        path = build_path(inp.anchor, inp.anchor_t, inp.anchor_a, inp.anchor_w, inp.imus_path,
+                          after_anchor=True)
         pts_l2 = compensate(path, inp.anchor, inp.t2, inp.pts, inp.pts_t, inp.pts_mask)
 
     # ---- spatial downsample ----

@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from limovelo_tpu_torch.deskew import compensate as dk
+from limovelo_tpu_torch.filter import process as proc
 from limovelo_tpu_torch.mapping import hashgrid as hg
 from limovelo_tpu_torch.ops.cuda import knn as gk
 from limovelo_tpu_torch.runtime import profiling
 
+import imu_cases as ic
 from knn_cases import adversarial_groups
 
 torch.set_num_threads(1)
@@ -344,3 +347,188 @@ def test_point_sharded_step_on_card_matches_single(cuda_device, tmp_path):
             np.testing.assert_allclose(r["steps"][k]["p"], out.x.p.cpu().numpy(), atol=1e-5)
             assert r["steps"][k]["num_matches"] == int(out.diag.num_matches)
     assert ranks[0]["steps"][1]["num_matches"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the IMU chains (csrc/imu_chain.cu) against their plain versions on the card
+# ---------------------------------------------------------------------------
+
+IMU_T0 = 12.5          # rebased seconds into a run
+IMU_CASES = [(M, layout) for M in (8, 16, 128, 512) for layout in ("tail", "interleaved")]
+IMU_CASES += [(16, "masked"), (128, "superset"), (64, "before"), (32, "tail"), (256, "tail")]
+
+
+def _imu_launches() -> dict:
+    """The `imu_chain` launch counters: the total and each kernel's."""
+    c = profiling.current().counters
+    return {k: c[f"imu_chain.{k}launches"] for k in ("", "predict.", "path.", "deskew.")}
+
+
+def _one_launch_of(kernel: str, before: dict) -> dict:
+    """`before` after one launch of `kernel`."""
+    return {k: v + (k in ("", kernel + ".")) for k, v in before.items()}
+
+
+def _syncs() -> dict:
+    return {k: v for k, v in profiling.current().counters.items() if k.startswith("sync.")}
+
+
+def _same(got, want, what):
+    """Bit for bit: the same dtype, shape and bits (NaN included)."""
+    for f in got._fields:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, f)
+        assert torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                           w.view(torch.int32) if w.is_floating_point() else w), \
+            (what, f, float((g.double() - w.double()).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,layout", IMU_CASES)
+def test_imu_predict_kernel_matches_plain(cuda_device, M, layout):
+    """`predict_window` on the card (one launch of the predict kernel, no
+    host read) against `predict_window_plain` on the card, on a car's state
+    and a full SPD P: the state bit for bit (the nominal chain rounds as the
+    plain operations do on the card), P within 1e-6 of its largest entry for
+    each hundred chained steps (its 23×23 products are summed in another
+    order than cuBLAS's, with fused products: 6.6e-7 after 103 steps,
+    2.2e-6 after 410 on an H100).  An all-masked window leaves both exactly
+    as they were."""
+    rng = np.random.default_rng(M)
+    x, P, Q, win, t0 = (ic.to(v, cuda_device) for v in (
+        ic.state(rng), ic.covariance(rng), ic.noise(), ic.window(rng, M, layout, IMU_T0),
+        torch.tensor(IMU_T0)))
+    before, syncs = _imu_launches(), _syncs()
+    xg, Pg = proc.predict_window(x, P, win, t0, Q)
+    torch.cuda.synchronize()
+    assert _imu_launches() == _one_launch_of("predict", before) and _syncs() == syncs
+    xw, Pw = proc.predict_window_plain(x, P, win, t0, Q)
+    _same(xg, xw, "state")
+    err = float((Pg - Pw).abs().max() / Pw.abs().max())
+    assert err <= 1e-6 * max(1.0, int(win.mask.sum()) / 100), err
+    if layout == "masked":
+        assert torch.equal(Pg, P)
+        _same(xg, x, "masked")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("after_anchor", [True, False])
+@pytest.mark.parametrize("M,layout", IMU_CASES)
+def test_imu_path_kernel_matches_plain(cuda_device, M, layout, after_anchor):
+    """`build_path` on the card (one launch of the path kernel, no host
+    read) against `build_path_plain` on the card, with lio_step's
+    strictly-after-anchor mask and derived controls and with mapping_step's
+    as-given ones: every node field bit for bit.  "superset" puts samples
+    before the anchor; "before" leaves lio_step's path none, so the host's
+    controls are taken."""
+    rng = np.random.default_rng(100 + M)
+    x, win, t0 = (ic.to(v, cuda_device) for v in (ic.state(rng), ic.window(rng, M, layout, IMU_T0),
+                                                 torch.tensor(IMU_T0)))
+    a0, w0 = (ic.to(v, cuda_device) for v in ic.controls(rng))
+    before, syncs = _imu_launches(), _syncs()
+    got = dk.build_path(x, t0, a0, w0, win, after_anchor=after_anchor)
+    torch.cuda.synchronize()
+    assert _imu_launches() == _one_launch_of("path", before) and _syncs() == syncs
+    want = dk.build_path_plain(x, t0, a0, w0, win, after_anchor=after_anchor)
+    _same(got, want, "path")
+    if layout == "before" and after_anchor:
+        assert torch.equal(got.a[0], a0) and torch.equal(got.w[0], w0)
+
+
+def _random_nodes(rng, path):
+    """`path` with its times and mask kept and a random pose, velocity and
+    controls at each node: a point bracketed one node off lands metres
+    away."""
+    S = path.t.shape[0]
+    f = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=path.t.device)
+    return path._replace(
+        R=f(np.stack([ic._rotation(rng, 1.5) for _ in range(S)])), p=f(rng.normal(size=(S, 3))),
+        v=f(rng.normal(size=(S, 3)) * 8), a=f(rng.normal(size=(S, 3)) + [0, 0, 9.81]),
+        w=f(rng.normal(size=(S, 3))))
+
+
+def _deskew_case(cuda_device, M, layout, t2_at, N, seed):
+    """The deskew kernel and `compensate_plain` on the card, on one path
+    (the path kernel's own nodes and random ones) and N points."""
+    rng = np.random.default_rng(seed)
+    x, win, t0 = (ic.to(v, cuda_device) for v in (ic.state(rng), ic.window(rng, M, layout, IMU_T0),
+                                                 torch.tensor(IMU_T0)))
+    a0, w0 = (ic.to(v, cuda_device) for v in ic.controls(rng))
+    path = dk.build_path(x, t0, a0, w0, win, after_anchor=True)
+    node_t = path.t.cpu().numpy()
+    last = float(node_t[-1])
+    t2 = torch.tensor({"before": float(node_t[len(node_t) // 2]) - 1e-4, "on": last,
+                       "after": last + 0.003}[t2_at], device=cuda_device)
+    for nodes in (path, _random_nodes(rng, path)):
+        pts, pts_t, msk = (ic.to(v, cuda_device) for v in ic.points(
+            rng, N, float(node_t[0]) - 0.01, last + 0.01, node_t=node_t))
+        before, syncs = _imu_launches(), _syncs()
+        got = dk.compensate(nodes, x, t2, pts, pts_t, msk)
+        torch.cuda.synchronize()
+        assert _imu_launches() == _one_launch_of("deskew", before) and _syncs() == syncs
+        want = dk.compensate_plain(nodes, x, t2, pts, pts_t, msk)
+        assert bool((got[~msk] == 0).all())
+        # cuBLAS's grid holds 65535 batches: a batched 3×3 product of more
+        # rounds the rows past it another way, which the kernel does not
+        # follow (a point bucket of 65536 holds over 32768 points, more than
+        # a scan of the benchmark's cell); those rows agree to a few ulps
+        exact = slice(0, min(N, 65535))
+        assert torch.equal(got[exact].view(torch.int32), want[exact].view(torch.int32)), \
+            float((got - want).abs().max())
+        assert bool(((got - want).abs() <= 1e-5 + 6e-7 * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t2_at", ["before", "on", "after"])
+@pytest.mark.parametrize("M,layout", [(16, "interleaved"), (128, "tail"), (512, "interleaved"),
+                                      (64, "superset")])
+def test_imu_deskew_kernel_matches_plain(cuda_device, M, layout, t2_at):
+    """`compensate` on the card (one launch of the deskew kernel, no host
+    read) against `compensate_plain` on the card, on the same nodes, with
+    the benchmark cell's 32768 points out to 80 m: bit for bit, on the
+    path's own nodes and on nodes with a random pose each (where a stamp
+    bracketed one node off would move its point by metres).  Stamps tied
+    exactly to node times (repeated where padding carries them), before the
+    first node and after the last; t2 before, on and after the last node; a
+    tenth of the rows, masked with junk stamps, come back as zeros."""
+    _deskew_case(cuda_device, M, layout, t2_at, 32768, 200 + M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [128, 256, 512, 1024, 2048, 4096, 8192, 16384, 65536, 131072])
+def test_imu_deskew_kernel_matches_plain_at_every_point_bucket(cuda_device, N):
+    """As above at the other point buckets (`Config.point_buckets`, 512 to
+    16384, and the doublings past them) and the shards that two or four
+    point-sharded ranks take of the smallest (128, 256): cuBLAS rounds the
+    plain version's batched matrix-vector products one way from 16384 to
+    32768 points and another way elsewhere, and the kernel follows it
+    (`ops/cuda/imu_chain._mv_kind`).  From 65536 on the first 65535 points
+    are bit for bit, the others within a few ulps (`_deskew_case`)."""
+    _deskew_case(cuda_device, 128, "tail", "after", N, 300 + N)
+
+
+@pytest.mark.cuda
+def test_lio_step_on_card_launches_the_imu_chain_kernels(cuda_device):
+    """A card pipeline's windows each run predict and deskew in three
+    launches of the `imu_chain` kernels and make neither lio_step's two
+    anchor-control reads nor `state_at`'s six; its records follow the CPU
+    run's within 5 mm (under "rematch", as the publisher test above and
+    for its reason)."""
+    from limovelo_tpu_torch.io.simulate import circle_trajectory, replay_into, room_world, simulate
+    from limovelo_tpu_torch.runtime.pipeline import LioPipeline
+
+    cfg = _room_config(match_mode="rematch")
+    sim = simulate(room_world(size=12, n_boxes=10), circle_trajectory(radius=2.5, omega=0.5), cfg,
+                   duration=1.0, lidar_lines=8, pts_per_line=160, imu_rate=200.0, seed=3)
+    pipes = {}
+    for dev in (cuda_device, "cpu"):
+        pipes[str(dev)] = pipe = LioPipeline(cfg, device=dev)
+        replay_into(pipe, sim)
+    card, cpu = pipes["cuda"], pipes["cpu"]
+    c, windows = card.timers.counters, card.timers.window
+    assert windows >= 6 and c["imu_chain.launches"] == 3 * windows
+    assert all(c[f"imu_chain.{k}.launches"] == windows for k in ("predict", "path", "deskew"))
+    assert c["sync.anchor_controls"] == 0 and c["sync.state_at"] == 0
+    assert cpu.timers.counters["imu_chain.launches"] == 0
+    np.testing.assert_array_equal(card.result.times, cpu.result.times)
+    assert np.linalg.norm(card.result.positions - cpu.result.positions, axis=1).max() < 0.005
