@@ -610,14 +610,33 @@ class LioPipeline:
 
     # ------------------------------------------------------------------
     def spin_once(self) -> bool:
-        """One main-loop pass; returns True if a window was processed."""
-        with self.timers.span("pipeline.spin"):
-            return self._spin_once()
+        """One main-loop pass; returns True if a window was processed.
 
-    def _spin_once(self) -> bool:
+        Counters: `pipeline.idle_spins` (a call that processed no window;
+        its host time is the stage `spin_idle`; every call is one of these
+        or a window), and for each window `pipeline.delta_us` (the delta in
+        force) and `pipeline.skipped_us` (the data time a real-time window
+        jumped over, `t2 − delta − last_time_updated` where positive)."""
+        timers = self.timers
+        with timers.span("pipeline.spin"):
+            t0 = _time.time_ns()
+            window = self._next_window()
+            if window is None:
+                timers.count("pipeline.idle_spins")
+                timers.record("spin_idle", t0, _time.time_ns())
+                return False
+            t1, t2, delta, skipped = window
+            timers.count("pipeline.delta_us", round(delta * 1e6))
+            timers.count("pipeline.skipped_us", round(skipped * 1e6))
+            self.step_window(t1, t2)
+            return True
+
+    def _next_window(self):
+        """The next window to process, (t1, t2, delta, skipped data time),
+        or None when this pass processes none."""
         cfg = self.config
         if not self.accum.ready():
-            return False
+            return None
         # stream-death detector: stop instead of spinning on a dead feed
         if self.accum.ended(self.accum.newest_data_time()):
             if not self.stream_dead:
@@ -625,7 +644,7 @@ class LioPipeline:
                 logging.getLogger(__name__).error(
                     "Sensor stream appears dead (<2 IMUs in the last 3 s); "
                     "stopping the localization loop.")
-            return False
+            return None
         self.stream_dead = False
         if not self._initialized:
             self._initialize()
@@ -641,13 +660,12 @@ class LioPipeline:
         # t2 advances even when the window is skipped
         self.t2 = t2
         if t2 - t1 < delta - 1e-6:
-            return False
+            return None
         # never reprocess an already-attempted window
         if t2 <= self._last_processed_t2 + 1e-9:
-            return False
+            return None
         self._last_processed_t2 = t2
-        self.step_window(t1, t2)
-        return True
+        return t1, t2, delta, t1 - self.last_time_updated
 
     def spin(self, max_steps: int = 10 ** 9) -> int:
         steps = 0

@@ -3,7 +3,8 @@ recorder, `StageTimers`, and the process-wide handle that reaches it.
 
 - `StageTimers` (the recorder):
   - always-on per-stage wall timers with p50/p95 summaries
-    (`with timers("h2d"): ...`, `summary()`, `report()`).  Host clock only:
+    (`with timers("h2d"): ...`, or `record(stage, start, end)` for a stage
+    known only once it has ended; `summary()`, `report()`).  Host clock only:
     on the card a stage that merely enqueues work returns before the device
     finishes, so a stage's time is the host's share of it unless the stage
     ends in a synchronising read (the pipeline's `tele_read`);
@@ -166,10 +167,21 @@ class StageTimers:
             with self.span(stage):
                 yield
         finally:
-            dt = time.perf_counter_ns() - t0
             self._stage = outer
-            self._samples[stage].append(dt / 1e9)
-            self.stage_ns[stage] += dt
+            self._add(stage, time.perf_counter_ns() - t0)
+
+    def record(self, stage: str, start: int, end: int) -> None:
+        """A stage its caller timed itself (`time.time_ns()` at its start
+        and end), for a stage known only once it has ended: a pipeline pass
+        is `spin_idle` when it found no window.  Kept as a span while
+        enabled, inside the span open around it."""
+        self._add(stage, end - start)
+        if self.enabled:
+            self.spans.append(Span(stage, self._open, start, end, self.window))
+
+    def _add(self, stage: str, dt_ns: int) -> None:
+        self._samples[stage].append(dt_ns / 1e9)
+        self.stage_ns[stage] += dt_ns
 
     def span(self, name: str):
         return _Open(self, name) if self.enabled else _NULL
