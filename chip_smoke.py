@@ -32,7 +32,9 @@ Phases, each printing one JSON line with its elapsed seconds:
            kernel once
   main     LioPipeline(DEFAULT with the 1-ring grouped KNN, device="cuda")
            replays the stream; every launch count is set to 0 just before
-           and read just after, and each window must have launched the kernel
+           and read just after, and each window must have launched the kernel;
+           the update's CUDA graphs replay (update.graph_replays > 0) and
+           record only in the first window of each key (point bucket)
   cpu      the first 0.5 s replayed on the CPU (plain versions) must give the
            same records, positions within 5 mm of the card's
   offline  mapping="offline" on the same stream: ATE below max(3 x main ATE,
@@ -664,11 +666,23 @@ def main_phase(sim):
     imu = {k: sorted({w[4][k] for w in windows}) for k in IMU_KERNELS}
     if on_card and any(v != [1] for v in imu.values()):
         raise AssertionError(f"imu_chain launches a window, by kernel: {imu}")
+    # the update's CUDA graphs: replayed every window, recorded only in the
+    # first window of each key (a new point bucket)
+    captures = np.diff([0] + [m.counters.get("update.graph_captures", 0)
+                              for m in pipe.timers.log])
+    capture_windows = [m.window for m, d in zip(pipe.timers.log, captures) if d]
+    graph_keys = len(pipe._update_graphs.by_key) if on_card else 0
+    replays = pipe.timers.counters["update.graph_replays"]
+    if on_card and (replays == 0 or len(capture_windows) != graph_keys):
+        raise AssertionError(f"update graphs: {replays} replays; recorded in windows "
+                             f"{capture_windows} for {graph_keys} keys")
     ds = np.array([r.ds_count for r in res.records], float)
     nm = np.array([r.num_matches for r in res.records], float)
     match_frac = float(nm[1:].sum() / ds[1:].sum())
     stats = dict(
         **window_stats(windows, launches), imu_chain_launches_per_window=imu,
+        graph_replays_per_window=replays / len(windows), graph_capture_windows=capture_windows,
+        graph_keys=graph_keys,
         imu_chain_launches={k: sum(w[4][k] for w in windows) for k in IMU_KERNELS},
         records=len(res.records), ate_m=ate,
         mean_ds_count=float(ds.mean()), mean_matches=float(nm.mean()), match_frac=match_frac,

@@ -20,7 +20,9 @@ The 23×23 prior/solve chain runs in float64 on the device
 Gauss-Newton iteration runs (a converged iterate is frozen, as in the JAX
 package), so the loop needs no host round trip of its own; the host reads
 the "auto" match-refresh decision (`sync.refresh`), and each eigensolve on
-the card waits for the device (`sync.eigh`).
+the card waits for the device (`sync.eigh`).  Between those reads the
+update runs as sync-free stretches (`_prior` ... `_covariance`); on a card
+`filter/graphs.py` replays them from CUDA graphs.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..mapping.hashgrid import GridParams, HashGridMap, knn
 from ..ops.planes import fit_planes, point_plane_distance
 from ..runtime import profiling
 from ..runtime.profiling import span
+from .graphs import Eager, graph_key
 
 #: blocking reads of one `torch.linalg.eigh` on a CUDA tensor: cuSOLVER's
 #: syevd and the check of its info each end in a stream synchronisation
@@ -72,21 +75,21 @@ def _eigh(S: torch.Tensor):
         return torch.linalg.eigh(S)
 
 
-def _eigh_spd(S: torch.Tensor):
-    """Eigendecomposition of a symmetric PSD matrix with a relative floor on
-    the eigenvalues (rounding noise can produce tiny negatives)."""
-    lam, V = _eigh(S)
-    lam = torch.maximum(lam, 1e-12 * torch.amax(torch.abs(lam)))
-    return lam, V
+def _floor(lam: torch.Tensor) -> torch.Tensor:
+    """A relative floor on the eigenvalues of a symmetric PSD matrix
+    (rounding noise can produce tiny negatives)."""
+    return torch.maximum(lam, 1e-12 * torch.amax(torch.abs(lam)))
 
 
-def _solve_spd(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    lam, V = _eigh_spd(S)
+def _floored_solve(lam: torch.Tensor, V: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """S⁻¹·rhs from the eigendecomposition (lam, V) of S."""
+    lam = _floor(lam)
     return V @ ((V.T @ rhs) / lam)
 
 
-def _inv_spd(S: torch.Tensor) -> torch.Tensor:
-    lam, V = _eigh_spd(S)
+def _floored_inv(lam: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """S⁻¹ from the eigendecomposition (lam, V) of S."""
+    lam = _floor(lam)
     return (V / lam[None, :]) @ V.T
 
 
@@ -150,15 +153,6 @@ def _gate(p_glob, fit, mask, dyn):
     return r, valid
 
 
-def _match(x, m, pts_lidar, mask, grid, static_cfg, dyn, knn_fn=None):
-    """Place the window with the current estimate, KNN each point, fit
-    planes, gate."""
-    p_glob, nb, sq, nb_valid = _search(x, m, pts_lidar, grid, static_cfg, knn_fn)
-    fit = _fit(nb, sq, nb_valid, dyn)
-    r, valid = _gate(p_glob, fit, mask, dyn)
-    return r, fit, valid
-
-
 def _match_frozen(x: NavState, pts_lidar, nb, nb_valid, fit, mask, dyn):
     """Frozen-neighbour iteration ("freeze"/"auto"): re-place the window with
     the current iterate and re-evaluate the residuals and the state-dependent
@@ -183,10 +177,141 @@ def _displacement_bound(x: NavState, xs: NavState, max_range) -> torch.Tensor:
     return dp + dtl + (th + th_li) * lever
 
 
+class _Setup(NamedTuple):
+    """What every stretch of one update reads besides its values."""
+
+    static: object        # config.StaticConfig
+    dyn: object           # config.DynParams
+    dtype: torch.dtype    # the window's (float32)
+    solve_t: torch.dtype  # the 23×23 chain's (`StaticConfig.solve_dtype`)
+    r_inv: float          # 1/LiDAR_noise
+    mesh: object
+
+
+# The update's sync-free stretches (see `filter/graphs.py`): each reads the
+# namespace `v` and returns its new values.  Between them the host reads
+# the refresh decision and runs the eigensolves and the searches.
+
+
+def _prior(v, c: _Setup):
+    """P⁻¹ (from P's eigendecomposition), the iterate's start at x0 and,
+    for the frozen-neighbour modes, the window's range."""
+    dev = v.pts.device
+    out = dict(P_inv=_floored_inv(v.lam, v.V), x=v.x0,
+               done=torch.zeros((), dtype=torch.bool, device=dev),
+               it=torch.zeros((), dtype=torch.int32, device=dev))
+    if c.static.match_mode != "rematch":
+        norms = torch.linalg.vector_norm(v.pts, dim=-1)
+        max_range = torch.amax(torch.where(v.mask, norms, torch.zeros_like(norms)))
+        if c.mesh is not None:
+            # the refresh decision precedes a search that may hold
+            # collectives: reduce its one shard-local input, so every rank
+            # takes the same branch
+            max_range = c.mesh.pmax(max_range)
+        out["max_range"] = max_range
+    return out
+
+
+def _refresh_bound(v, c: _Setup):
+    """"auto": has the placement moved more than `match_refresh_m` since
+    the last search?"""
+    return dict(need=_displacement_bound(v.x, v.xs, v.max_range) > c.dyn.match_refresh_m)
+
+
+def _normal_equations(v, c: _Setup):
+    """Match at the iterate, weigh, and assemble the Gauss-Newton system
+    S δ = rhs."""
+    dyn, dtype, solve_t = c.dyn, c.dtype, c.solve_t
+    if c.static.match_mode == "rematch":
+        r, valid = _gate(v.p_glob, v.fit, v.mask, dyn)
+    else:
+        r, valid = _match_frozen(v.x, v.pts, v.nb, v.nbv, v.fit, v.mask, dyn)
+    w = valid.to(dtype)
+    if dyn.huber_delta > 0.0:   # robust IRLS weight; 0 = least squares
+        w = w * torch.clamp(dyn.huber_delta / torch.clamp(torch.abs(r), min=1e-9), max=1.0)
+    H = observation_matrix(v.x, v.pts, v.fit.normal, c.static.estimate_extrinsics)
+    Hw = H * w[:, None]
+    HtH = Hw.T @ H                                     # (12,12)
+    Htr = Hw.T @ (r * w)                               # (12,)
+    if c.mesh is not None:                             # one all-reduce for both
+        both = c.mesh.psum(torch.cat([HtH, Htr[:, None]], dim=1))
+        HtH, Htr = both[:, :12], both[:, 12]
+
+    L = chart_transport(v.x, v.x0, dtype)
+    dx_prior = boxminus(v.x, v.x0)
+    L_s = L.to(solve_t)
+    LtPinv = L_s.T @ v.P_inv
+    S = torch.zeros((ERROR_DIM, ERROR_DIM), dtype=solve_t, device=r.device)
+    S[:12, :12] = HtH.to(solve_t) * c.r_inv
+    S = S + LtPinv @ L_s
+    g_vec = torch.zeros(ERROR_DIM, dtype=solve_t, device=r.device)
+    g_vec[:12] = Htr.to(solve_t) * c.r_inv
+    rhs = -(g_vec + LtPinv @ dx_prior.to(solve_t))
+    return dict(r=r, valid=valid, HtH=HtH, S=S, rhs=rhs)
+
+
+def _solve(v, c: _Setup):
+    """δ from S's eigendecomposition."""
+    return dict(delta=_floored_solve(v.lam, v.V, v.rhs).to(c.dtype))
+
+
+def _advance(v, c: _Setup):
+    """Degeneracy gating on the HᵀH spectrum (drop the update components
+    along eigen-directions weaker than the threshold), then x ⊞ δ unless
+    converged; a converged iterate is frozen."""
+    delta, out = v.delta, {}
+    if c.static.compute_degeneracy:
+        strong = (v.eigval >= c.dyn.degeneracy_threshold).to(c.dtype)
+        d12 = v.eigvec.T @ delta[:12]
+        delta = torch.cat([v.eigvec @ (d12 * strong), delta[12:]])
+    else:
+        out["eigval"] = torch.zeros(12, dtype=c.dtype, device=delta.device)
+    max_d = torch.amax(torch.abs(delta))
+    out.update(x=select(v.done, v.x, boxplus(v.x, delta)), max_d=max_d,
+               it=v.it + (~v.done).to(torch.int32), done=v.done | (max_d < c.dyn.LIMITS))
+    return out
+
+
+def _covariance_system(v, c: _Setup):
+    """The information matrix at the final iterate, in its chart."""
+    L_s = chart_transport(v.x, v.x0, c.dtype).to(c.solve_t)
+    S = torch.zeros((ERROR_DIM, ERROR_DIM), dtype=c.solve_t, device=L_s.device)
+    S[:12, :12] = v.HtH.to(c.solve_t) * c.r_inv
+    return dict(S=S + L_s.T @ v.P_inv @ L_s)
+
+
+def _covariance(v, c: _Setup):
+    """P⁺ (symmetrised), and the match count and mean residual of the last
+    iteration's match."""
+    P_new = _floored_inv(v.lam, v.V)
+    P_new = (0.5 * (P_new + P_new.T)).to(c.dtype)
+    w = v.valid.to(c.dtype)
+    n_matches = torch.sum(v.valid).to(torch.int32)
+    res_sum = torch.sum(torch.abs(v.r) * w)
+    if c.mesh is not None:
+        # the count travels as a float32, exact below 2²⁴ matches
+        both = c.mesh.psum(torch.stack([n_matches.to(c.dtype), res_sum]))
+        n_matches, res_sum = both[0].to(torch.int32), both[1]
+    return dict(P_new=P_new, n_matches=n_matches,
+                mean_residual=res_sum / torch.clamp(n_matches, min=1))
+
+
+def _eigensolve(run, S: torch.Tensor) -> None:
+    lam, V = _eigh(S)
+    run.put(lam=lam, V=V)
+
+
+def _search_and_fit(run, x: NavState, m, grid, static_cfg, dyn, knn_fn) -> None:
+    """A search at `x` for the frozen-neighbour modes: its neighbours and
+    planes, and `x` as the state it ran at."""
+    _, nb, sq, nbv = _search(x, m, run.v.pts, grid, static_cfg, knn_fn)
+    run.put(xs=x, nb=nb, nbv=nbv, fit=_fit(nb, sq, nbv, dyn))
+
+
 def iterated_update(x0: NavState, P: torch.Tensor, m: HashGridMap, pts_lidar: torch.Tensor,
                     mask: torch.Tensor, grid: GridParams, static_cfg,
-                    dyn, mesh=None,
-                    knn_fn=None) -> Tuple[NavState, torch.Tensor, UpdateDiagnostics]:
+                    dyn, mesh=None, knn_fn=None,
+                    graphs=None) -> Tuple[NavState, torch.Tensor, UpdateDiagnostics]:
     """Run the full iterated update; returns (x⁺, P⁺, diagnostics).
 
     `static_cfg.match_mode`: "rematch" searches the map every iteration;
@@ -196,111 +321,63 @@ def iterated_update(x0: NavState, P: torch.Tensor, m: HashGridMap, pts_lidar: to
 
     `mesh` (the JAX package's `axis_name`): the window is this rank's shard
     and the normal equations are all-reduced.  `knn_fn` replaces the map
-    query (the map-sharded step's ring KNN)."""
-    dtype, dev = pts_lidar.dtype, pts_lidar.device
+    query (the map-sharded step's ring KNN).
+
+    `graphs` (`filter.graphs.UpdateGraphs`, CUDA tensors and no mesh):
+    replay the sync-free stretches from CUDA graphs recorded at their first
+    call for this shape and configuration; the same kernels as without."""
+    if graphs is not None and mesh is not None:
+        raise ValueError("the update's graphs hold no collectives: pass graphs or mesh")
+    solve_t = torch.float64 if static_cfg.solve_dtype == "f64" else torch.float32
     # 1/noise in float32, as the JAX package computes it from its f32 scalar
     r_inv = float(np.float32(1.0) / np.float32(dyn.LiDAR_noise))
-    solve_t = torch.float64 if static_cfg.solve_dtype == "f64" else torch.float32
-    P_inv = _inv_spd(P.to(solve_t))
+    c = _Setup(static_cfg, dyn, pts_lidar.dtype, solve_t, r_inv, mesh)
+    run = (Eager() if graphs is None
+           else graphs.stretches(graph_key(pts_lidar.shape[0], static_cfg, dyn)))
+    v = run.v
     mode = static_cfg.match_mode
 
-    search_state = None
-    max_range = None
+    run.put(x0=x0, P=P, pts=pts_lidar, mask=mask)
+    _eigensolve(run, v.P.to(solve_t))
+    run("prior", _prior, c)
     if mode in ("freeze", "auto"):
-        _, nb0, sq0, nbv0 = _search(x0, m, pts_lidar, grid, static_cfg, knn_fn)
-        search_state = (x0, nb0, nbv0, _fit(nb0, sq0, nbv0, dyn))
-        norms = torch.linalg.vector_norm(pts_lidar, dim=-1)
-        max_range = torch.amax(torch.where(mask, norms, torch.zeros_like(norms)))
-        if mesh is not None:
-            # the refresh decision precedes a search that may hold
-            # collectives: reduce its one shard-local input, so every rank
-            # takes the same branch
-            max_range = mesh.pmax(max_range)
+        _search_and_fit(run, v.x0, m, grid, static_cfg, dyn, knn_fn)
 
-    x = x0
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    out = None
     for _ in range(static_cfg.MAX_NUM_ITERS):
         with span("update.iteration"):
             if mode == "rematch":
-                r, fit, valid = _match(x, m, pts_lidar, mask, grid, static_cfg, dyn, knn_fn)
-            else:
-                if mode == "auto":
-                    # a host decision: the search only runs when it is needed
-                    moved = _displacement_bound(x, search_state[0], max_range)
-                    with profiling.blocking("sync.refresh"):
-                        need = bool(moved > dyn.match_refresh_m)
-                    if need:
-                        _, nb, sq, nbv = _search(x, m, pts_lidar, grid, static_cfg, knn_fn)
-                        search_state = (x, nb, nbv, _fit(nb, sq, nbv, dyn))
-                _, nb, nbv, fit = search_state
-                r, valid = _match_frozen(x, pts_lidar, nb, nbv, fit, mask, dyn)
-            w = valid.to(dtype)
-            if dyn.huber_delta > 0.0:   # robust IRLS weight; 0 = least squares
-                w = w * torch.clamp(dyn.huber_delta / torch.clamp(torch.abs(r), min=1e-9), max=1.0)
-            H = observation_matrix(x, pts_lidar, fit.normal, static_cfg.estimate_extrinsics)
-            Hw = H * w[:, None]
-            HtH = Hw.T @ H                                     # (12,12)
-            Htr = Hw.T @ (r * w)                               # (12,)
-            if mesh is not None:                               # one all-reduce for both
-                both = mesh.psum(torch.cat([HtH, Htr[:, None]], dim=1))
-                HtH, Htr = both[:, :12], both[:, 12]
-
-            L = chart_transport(x, x0, dtype)
-            dx_prior = boxminus(x, x0)
-            L_s = L.to(solve_t)
-            LtPinv = L_s.T @ P_inv
-            S = torch.zeros((ERROR_DIM, ERROR_DIM), dtype=solve_t, device=dev)
-            S[:12, :12] = HtH.to(solve_t) * r_inv
-            S = S + LtPinv @ L_s
-            g_vec = torch.zeros(ERROR_DIM, dtype=solve_t, device=dev)
-            g_vec[:12] = Htr.to(solve_t) * r_inv
-            rhs = -(g_vec + LtPinv @ dx_prior.to(solve_t))
-            delta = _solve_spd(S, rhs).to(dtype)
-
-            # degeneracy gating on the HᵀH spectrum: drop the update components
-            # along eigen-directions weaker than the threshold
+                p_glob, nb, sq, nbv = _search(v.x, m, v.pts, grid, static_cfg, knn_fn)
+                run.put(p_glob=p_glob, fit=_fit(nb, sq, nbv, dyn))
+            elif mode == "auto":
+                # a host decision: the search only runs when it is needed
+                run("refresh_bound", _refresh_bound, c)
+                with profiling.blocking("sync.refresh"):
+                    need = bool(v.need)
+                if need:
+                    _search_and_fit(run, v.x, m, grid, static_cfg, dyn, knn_fn)
+            run("normal_equations", _normal_equations, c)
+            _eigensolve(run, v.S)
+            run("solve", _solve, c)
             if static_cfg.compute_degeneracy:
-                eigval, eigvec = _eigh(HtH)
-                strong = (eigval >= dyn.degeneracy_threshold).to(dtype)
-                d12 = eigvec.T @ delta[:12]
-                delta = torch.cat([eigvec @ (d12 * strong), delta[12:]])
-            else:
-                eigval = torch.zeros(12, dtype=dtype, device=dev)
+                eigval, eigvec = _eigh(v.HtH)
+                run.put(eigval=eigval, eigvec=eigvec)
+            run("advance", _advance, c)
 
-            x = select(done, x, boxplus(x, delta))
-            max_d = torch.amax(torch.abs(delta))
-            it = it + (~done).to(torch.int32)
-            done = done | (max_d < dyn.LIMITS)
-            # the last iteration's match is the final iterate's (once done the
-            # state freezes but the match still runs at it): P⁺ and the
-            # diagnostics reuse it
-            out = (valid, r, eigval, max_d, HtH, fit.normal, fit.centroid)
-
-    valid, r, eigval_last, max_d_last, HtH, normals_last, centroids_last = out
-    w = valid.to(dtype)
+    # the last iteration's match is the final iterate's (once done the state
+    # freezes but the match still runs at it): P⁺ and the diagnostics reuse it
     with span("update.covariance"):
-        L_s = chart_transport(x, x0, dtype).to(solve_t)
-        S = torch.zeros((ERROR_DIM, ERROR_DIM), dtype=solve_t, device=dev)
-        S[:12, :12] = HtH.to(solve_t) * r_inv
-        P_new = _inv_spd(S + L_s.T @ P_inv @ L_s)
-        P_new = (0.5 * (P_new + P_new.T)).to(dtype)
+        run("covariance_system", _covariance_system, c)
+        _eigensolve(run, v.S)
+        run("covariance", _covariance, c)
 
-    n_matches = torch.sum(valid).to(torch.int32)
-    res_sum = torch.sum(torch.abs(r) * w)
-    if mesh is not None:
-        # the count travels as a float32, exact below 2²⁴ matches
-        both = mesh.psum(torch.stack([n_matches.to(dtype), res_sum]))
-        n_matches, res_sum = both[0].to(torch.int32), both[1]
     diag = UpdateDiagnostics(
-        num_matches=n_matches,
-        mean_residual=res_sum / torch.clamp(n_matches, min=1),
-        eigenvalues=eigval_last,
-        delta_norm=max_d_last,
-        iterations=it,
-        plane_normals=normals_last,
-        plane_centroids=centroids_last,
-        plane_valid=valid,
+        num_matches=v.n_matches,
+        mean_residual=v.mean_residual,
+        eigenvalues=v.eigval,
+        delta_norm=v.max_d,
+        iterations=v.it,
+        plane_normals=v.fit.normal,
+        plane_centroids=v.fit.centroid,
+        plane_valid=v.valid,
     )
-    return x, P_new, diag
+    return run.out((v.x, v.P_new, diag))

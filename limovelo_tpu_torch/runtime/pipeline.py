@@ -50,6 +50,7 @@ from scipy.spatial.transform import Rotation as Rsc
 
 from ..config import DynParams
 from ..device import resolve_device
+from ..filter.graphs import UpdateGraphs
 from ..filter.process import ImuWindow, process_noise_Q
 from ..geometry import state as st
 from ..mapping.hashgrid import GridParams, HashGridMap, make_map, prune
@@ -160,6 +161,10 @@ class LioPipeline:
         self.Q = process_noise_Q(config, device=self.device)
         self.dyn = DynParams.from_config(config)
         self._static = config.static()
+        # the update's sync-free stretches as CUDA graphs, on one card (a
+        # mesh's collectives sit inside them)
+        self._update_graphs = (UpdateGraphs(self.device)
+                               if self.device.type == "cuda" and mesh is None else None)
         # host times are absolute float64; the device sees them rebased
         self.t2: Optional[float] = None
         self.last_time_updated: Optional[float] = None
@@ -351,6 +356,7 @@ class LioPipeline:
                 t2=self._to_dev(f32(t2 - rebase)),
                 Q=self.Q,
                 dyn=self.dyn,
+                graphs=self._update_graphs,
             )
         with self.timers("step"):
             if self._sharded_step is not None:

@@ -52,6 +52,9 @@ class StepInputs(NamedTuple):
     t2: torch.Tensor             # ()
     Q: torch.Tensor              # (12,12) process noise
     dyn: object                  # config.DynParams
+    # the update's recorded stretches (`filter.graphs.UpdateGraphs`, a
+    # pipeline's on one card) or None: `iterated_update`'s `graphs`
+    graphs: object = None
 
 
 class StepOutputs(NamedTuple):
@@ -158,7 +161,7 @@ def lio_step(inp: StepInputs, m: HashGridMap, static_cfg, grid: GridParams) -> S
     # ---- iterated point-to-plane update ----
     with span("step.update"):
         x_corr, P_corr, diag = iterated_update(x_pred, P_pred, m, ds.pts, ds.mask, grid,
-                                               static_cfg, inp.dyn)
+                                               static_cfg, inp.dyn, graphs=inp.graphs)
         x_new = select(enough, x_corr, x_pred)
         P_new = torch.where(enough, P_corr, P_pred)
 

@@ -18,6 +18,7 @@ from limovelo_tpu_torch.ops.cuda import knn as gk
 from limovelo_tpu_torch.runtime import profiling
 
 import imu_cases as ic
+import update_cases as uc
 from knn_cases import adversarial_groups
 
 torch.set_num_threads(1)
@@ -532,3 +533,74 @@ def test_lio_step_on_card_launches_the_imu_chain_kernels(cuda_device):
     assert cpu.timers.counters["imu_chain.launches"] == 0
     np.testing.assert_array_equal(card.result.times, cpu.result.times)
     assert np.linalg.norm(card.result.positions - cpu.result.positions, axis=1).max() < 0.005
+
+
+# ---------------------------------------------------------------------------
+# the iterated update's CUDA graphs (filter/graphs.py) against the eager update
+# ---------------------------------------------------------------------------
+
+
+def _update_pair(cfg, m, grid, window, cache):
+    """(graphed, eager) results of one update."""
+    from limovelo_tpu_torch.filter import update as upd
+
+    x0, P, pts, mask = window
+    args = (x0, P, m, pts, mask, grid, cfg.static(), cfg.dynamic())
+    want = upd.iterated_update(*args)
+    got = upd.iterated_update(*args, graphs=cache)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("mode", ["auto", "freeze", "rematch"])
+@pytest.mark.parametrize("bucket", [2048, 32768])
+def test_graphed_update_equals_eager(cuda_device, bucket, mode, ext):
+    """x⁺, P⁺ and every diagnostics field of the graphed update equal the
+    eager update's (`torch.equal`) over a chain of five windows through one
+    cache, the "auto" refresh firing in every other window (grouped KNN, as
+    the benchmark's cells); the first window records every stretch, later
+    ones replay them and record nothing; the results are fresh tensors,
+    which later windows leave alone."""
+    from limovelo_tpu_torch.filter.graphs import UpdateGraphs
+
+    cfg = uc.update_config(match_mode=mode, estimate_extrinsics=ext, knn_backend="grouped")
+    m, grid = uc.room_map(cfg, cuda_device)
+    cache = UpdateGraphs(cuda_device)
+    c = profiling.current().counters
+    for w in range(5):
+        offset = 0.06 if w % 2 == 0 else 0.001
+        window = uc.update_window(cfg, bucket, seed=w, device=cuda_device, offset=offset)
+        s0, cap, rep = (c["update.searches"], c["update.graph_captures"],
+                        c["update.graph_replays"])
+        got, want = _update_pair(cfg, m, grid, window, cache)
+        uc.assert_updates_equal(got, want)
+        if w == 0:
+            first = (got, want)
+        if mode == "auto":
+            assert (c["update.searches"] - s0 > 2) == (offset > 0.05), w
+        recorded = uc.CAPTURES[mode] if w == 0 else 0
+        assert c["update.graph_captures"] - cap == recorded
+        assert c["update.graph_replays"] - rep == uc.REPLAYS[mode] - recorded
+    uc.assert_updates_equal(*first)
+    assert int(want[2].num_matches) > bucket // 4
+
+
+@pytest.mark.cuda
+def test_graphed_update_records_again_for_a_new_bucket_or_params(cuda_device):
+    """A new point bucket and new `DynParams` each record every stretch
+    anew; a key met before replays; each result equals the eager one."""
+    from limovelo_tpu_torch.filter.graphs import UpdateGraphs
+
+    cfg = uc.update_config(knn_backend="grouped")
+    m, grid = uc.room_map(cfg, cuda_device)
+    cache = UpdateGraphs(cuda_device)
+    c = profiling.current().counters
+    runs = [(cfg, 2048), (cfg, 4096), (cfg.replace(huber_delta=0.05), 2048), (cfg, 2048)]
+    for i, (cf, bucket) in enumerate(runs):
+        window = uc.update_window(cf, bucket, seed=10 + i, device=cuda_device)
+        cap = c["update.graph_captures"]
+        uc.assert_updates_equal(*_update_pair(cf, m, grid, window, cache))
+        assert c["update.graph_captures"] - cap == (uc.CAPTURES["auto"] if i < 3 else 0), i
+    assert len(cache.by_key) == 3

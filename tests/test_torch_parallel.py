@@ -432,7 +432,7 @@ def test_pipeline_with_a_mesh_matches_jax(world, jmesh, shard):
     flips; the
     gathered window on every rank; a checkpoint written by rank 0 loads
     back to the same map on each rank (the map-sharded file in the JAX
-    layout, counters of shape (D,))."""
+    layout, counters of shape (D,)); no rank builds the update's graphs."""
     ranks = _case(world, f"pipeline_{shard}")
     sim = world[0][f"pipeline_{shard}"]["sim"]
     jp = JLioPipeline(_pipeline_config(), mesh=jmesh, shard=shard, defer_readback=False)
@@ -448,6 +448,8 @@ def test_pipeline_with_a_mesh_matches_jax(world, jmesh, shard):
         assert (np.abs(np.array(r["map_points"]) - n_j) <= np.maximum(8, 0.02 * n_j)).all()
         assert r["checkpoint_same_map"]
         assert r["checkpoint_counters"] == ((D,) if shard == "map" else ())
+        # a mesh keeps the eager update (its collectives sit in the stretches)
+        assert not r["update_graphs"] and r["graph_replays"] == 0
     np.testing.assert_array_equal(ranks[0]["positions"], ranks[1]["positions"])
     np.testing.assert_array_equal(ranks[0]["gpts"], ranks[1]["gpts"])
     np.testing.assert_array_equal(ranks[0]["gds"], ranks[1]["gds"])

@@ -207,7 +207,9 @@ def case_pipeline(mesh, p):
                 map_points=[r.map_points for r in res.records],
                 map_buckets=[r.map_buckets for r in res.records],
                 local_buckets=int(pipe.map.num_buckets), gpts=pipe._last_gpts,
-                gds=pipe._last_gds, checkpoint_same_map=same_map, checkpoint_counters=counters)
+                gds=pipe._last_gds, checkpoint_same_map=same_map, checkpoint_counters=counters,
+                update_graphs=pipe._update_graphs is not None,
+                graph_replays=pipe.timers.counters["update.graph_replays"])
 
 
 def case_card_step(mesh, p):
